@@ -1,0 +1,495 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each raising on failure (the script then exits non-zero):
+
+1. the card's name and power limit, as ``nvidia-smi`` reports them;
+2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, in parallel) and report the build time;
+3. parity on the card: each kernel against its plain PyTorch version, in
+   bfloat16 (2e-2) and float32 (2e-5 abs / 2e-4 rel), at the main path's
+   shapes and at ragged, windowed, soft-capped and grouped-query ones;
+4. the smoke model served on the card against the same model on the CPU
+   through the plain attention versions (greedy ids must match);
+5. the main path: full-width stablelm-1.6b (bf16, seeded random weights
+   drawn on the card) served by ``repro_torch.platform.Continuum`` over a
+   2-tier edge -> cloud continuum (edge 2 slots, cloud 16, max_len 1024,
+   policy auto), ~48 requests with prompts of 64..512 tokens and 32 new
+   tokens each, ramped over the rounds, then drained.  Fails unless every
+   request is served with 32 tokens, both kernels' launch counts are > 0
+   and the plain versions' are 0;
+6. timing of each kernel at the server's shapes (median over CUDA events,
+   L2 flushed between launches) beside its bound, its plain version and
+   ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick
+   (the port never calls it), printed as one ``{"kernels": [...]}`` line.
+
+The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
+without the package beside this script, it prints no result and exits
+non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
+PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2),
+       "float32": dict(atol=2e-5, rtol=2e-4)}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------- phase 1-2
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def build_kernels() -> float:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    paths = _build.build()
+    secs = time.perf_counter() - t0
+    for name, path in paths.items():
+        report = path.with_suffix(".log").read_text()
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
+        spill = sum(int(m) for m in re.findall(r"(\d+) bytes spill", report))
+        log(f"[build] {name}: {path.name}, {len(regs)} instantiations, "
+            f"registers {min(regs)}..{max(regs)}, spill bytes {spill}")
+    return secs
+
+
+# ---------------------------------------------------------------- phase 3
+
+
+def _rand(shape, dtype, gen):
+    import torch
+    return torch.randn(shape, generator=gen, device="cuda",
+                       dtype=torch.float32).to(dtype)
+
+
+def prefill_inputs(B, S, T, Hq, Hkv, D, dtype, gen):
+    """q/k/v and positions of a prefill: queries are the last S of T
+    ordered positions (S == T is plain causal prefill)."""
+    import torch
+    q = _rand((B, S, Hq, D), dtype, gen)
+    k = _rand((B, T, Hkv, D), dtype, gen)
+    v = _rand((B, T, Hkv, D), dtype, gen)
+    kp = torch.arange(T, dtype=torch.int32, device="cuda")[None].expand(
+        B, T).contiguous()
+    qp = kp[:, T - S:].contiguous()
+    return q, k, v, qp, kp
+
+
+def decode_inputs(B, T, Hq, Hkv, D, dtype, gen, fill=None):
+    """q, a rolling cache k/v and positions: row b holds ``n_b`` tokens at
+    unordered slots (pos % T after wrapping), the rest empty (pos -1); a
+    few rows have wrapped, one row is empty (all masked -> zeros)."""
+    import torch
+    q = _rand((B, Hq, D), dtype, gen)
+    k = _rand((B, T, Hkv, D), dtype, gen)
+    v = _rand((B, T, Hkv, D), dtype, gen)
+    kp = torch.full((B, T), -1, dtype=torch.int32)
+    qp = torch.zeros(B, dtype=torch.int32)
+    cpu = torch.Generator().manual_seed(int(torch.randint(
+        0, 2**31 - 1, (1,), generator=gen, device="cuda").item()))
+    for b in range(B):
+        if fill is not None:
+            n = int(fill[b])
+            kp[b, :n] = torch.arange(n, dtype=torch.int32)
+            qp[b] = n - 1
+            continue
+        if b == 0:
+            continue                                   # an empty row
+        n = int(torch.randint(1, 2 * T, (1,), generator=cpu))
+        pos = torch.arange(max(0, n - T), n, dtype=torch.int32)
+        kp[b, pos.long() % T] = pos                    # rolling, unordered
+        qp[b] = n - 1 - int(torch.randint(0, 3, (1,), generator=cpu))
+    return q, k, v, qp.cuda(), kp.cuda()
+
+
+def check_close(name, got, want, dtype_name):
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[dtype_name], msg=lambda m: f"{name}: {m}")
+    if not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"{name}: non-finite output")
+    return err
+
+
+def parity() -> None:
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k1 = [  # (label, B, S, T, Hq, Hkv, D, causal, window, softcap)
+        ("main", 4, 512, 512, 32, 32, 64, True, None, None),
+        ("ragged", 2, 200, 200, 32, 32, 64, True, None, None),
+        ("ragged-suffix", 2, 40, 200, 8, 8, 64, True, None, None),
+        ("window128", 2, 512, 512, 32, 32, 64, True, 128, None),
+        ("softcap30", 2, 512, 512, 32, 32, 64, True, None, 30.0),
+        ("gqa4", 2, 512, 512, 32, 8, 64, True, None, None),
+        ("noncausal", 1, 100, 130, 4, 2, 64, False, None, None),
+        ("d16", 2, 70, 70, 4, 2, 16, True, None, None),
+        ("d32", 2, 70, 70, 4, 4, 32, True, 16, 20.0),
+        ("d128", 2, 130, 130, 4, 1, 128, True, None, None),
+    ]
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        for label, B, S, T, Hq, Hkv, D, causal, win, cap in k1:
+            q, k, v, qp, kp = prefill_inputs(B, S, T, Hq, Hkv, D, dt, gen)
+            got = ops.flash_attention(q, k, v, qp, kp, causal=causal,
+                                      window=win, softcap=cap)
+            torch.cuda.synchronize()
+            want = ref.flash_attention(q, k, v, qp, kp, causal=causal,
+                                       window=win, softcap=cap)
+            err = check_close(f"K1 {label} {dname}", got, want, dname)
+            log(f"[parity] K1 flash_attention {label:14s} {dname:8s} "
+                f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D} "
+                f"max_abs_err={err:.3e} ok")
+    k2 = [  # (label, B, T, Hq, Hkv, D, window, softcap)
+        ("main", 16, 1024, 32, 32, 64, None, None),
+        ("gqa4", 16, 1024, 32, 8, 64, None, None),
+        ("gqa3", 4, 300, 12, 4, 64, None, None),
+        ("gqa16", 2, 300, 32, 2, 64, None, None),
+        ("window", 8, 512, 8, 8, 64, 100, None),
+        ("softcap", 8, 512, 8, 8, 64, None, 30.0),
+        ("d16", 4, 200, 4, 2, 16, None, None),
+        ("d32", 4, 200, 4, 4, 32, None, None),
+        ("d128", 4, 200, 8, 2, 128, None, None),
+    ]
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        for label, B, T, Hq, Hkv, D, win, cap in k2:
+            q, k, v, qp, kp = decode_inputs(B, T, Hq, Hkv, D, dt, gen)
+            got = ops.decode_attention(q, k, v, qp, kp, window=win,
+                                       softcap=cap)
+            torch.cuda.synchronize()
+            want = ref.decode_attention(q, k, v, qp, kp, window=win,
+                                        softcap=cap)
+            err = check_close(f"K2 {label} {dname}", got, want, dname)
+            if got[0].abs().max().item() != 0.0:
+                raise RuntimeError(f"K2 {label} {dname}: the empty row is "
+                                   f"not zero")
+            log(f"[parity] K2 decode_attention {label:8s} {dname:8s} "
+                f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} "
+                f"max_abs_err={err:.3e} ok")
+
+
+# ---------------------------------------------------------------- phase 4
+
+
+def smoke_model_vs_cpu() -> None:
+    """The smoke model on the card (kernels) and on the CPU (plain
+    versions), same weights, same requests: greedy ids must match and
+    logits agree to float32 tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+    from repro_torch.serving.engine import Endpoint
+    cfg = configs.get_smoke_config("stablelm-1.6b")
+    params_cpu = model_zoo.init(cfg, torch.Generator().manual_seed(0))
+    params_gpu = {k: v.cuda() for k, v in params_cpu.items()}
+    rng = np.random.default_rng(0)
+    eps = {dev: Endpoint(cfg, p, slots=4, max_len=48, device=dev)
+           for dev, p in (("cpu", params_cpu), ("cuda", params_gpu))}
+    prompts = {i: rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32)
+               for i, L in enumerate((5, 17, 17, 30))}
+    streams = {}
+    for dev, ep in eps.items():
+        slots = [ep.try_claim() for _ in prompts]
+        first = ep.prefill_batch({s: prompts[i] for i, s in enumerate(slots)})
+        toks = dict(first)
+        out = {s: [t] for s, t in toks.items()}
+        for _ in range(24):                       # wraps the 48-slot cache
+            toks = ep.decode_all(toks)
+            for s, t in toks.items():
+                out[s].append(t)
+        streams[dev] = out
+    if streams["cpu"] != streams["cuda"]:
+        raise RuntimeError("smoke model: greedy ids on the card differ from "
+                           "the CPU plain path")
+    log(f"[model] smoke model on cuda == cpu plain path: "
+        f"{sum(len(v) for v in streams['cuda'].values())} tokens identical")
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def serve_full(shapes: dict) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo
+    from repro_torch.platform import (AutoscalingPolicy, Continuum,
+                                      FunctionSpec, Request, TierConfig)
+    cfg = configs.get_config("stablelm-1.6b")
+    t0 = time.perf_counter()
+    params = model_zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in params.values())
+    log(f"[serve] stablelm-1.6b full width: {cfg.num_layers} layers, "
+        f"d={cfg.d_model}, heads={cfg.num_heads}/{cfg.num_kv_heads}, "
+        f"head_dim={cfg.head_dim}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}, "
+        f"{nparams / 1e9:.3f}B params bf16, init "
+        f"{time.perf_counter() - t0:.1f}s")
+    max_len, max_new = 1024, 32
+    cc = Continuum(edge=TierConfig(slots=2, max_len=max_len),
+                   cloud=TierConfig(slots=16, max_len=max_len,
+                                    extra_latency_s=0.02),
+                   policy="auto", seed=0, device="cuda")
+    cc.deploy(FunctionSpec(name="stablelm", arch="stablelm-1.6b",
+                           autoscaling=AutoscalingPolicy()), cfg, params)
+    if any(t.endpoints["stablelm"].params is not params for t in cc.tiers):
+        raise RuntimeError("tiers do not share the one set of weights")
+
+    # record the shapes each kernel sees on the main path
+    from repro_torch.kernels import decode_attention as _dec
+    from repro_torch.kernels import flash_attention as _fa
+    fa_launch, dec_launch = _fa.flash_attention, _dec.decode_attention
+
+    def fa_rec(q, k, v, q_pos, kv_pos, **kw):
+        shapes.setdefault("K1", {}).setdefault(
+            (tuple(q.shape), tuple(k.shape)), 0)
+        shapes["K1"][(tuple(q.shape), tuple(k.shape))] += 1
+        return fa_launch(q, k, v, q_pos, kv_pos, **kw)
+
+    def dec_rec(q, k, v, q_pos, kv_pos, **kw):
+        key = (tuple(q.shape), tuple(k.shape))
+        shapes.setdefault("K2", {}).setdefault(key, 0)
+        shapes["K2"][key] += 1
+        return dec_launch(q, k, v, q_pos, kv_pos, **kw)
+
+    # and how many model-level prefill / decode calls carried them
+    calls = {"prefill": 0, "decode": 0}
+    zoo_prefill, zoo_decode = model_zoo.prefill, model_zoo.decode
+
+    def prefill_rec(*a, **kw):
+        calls["prefill"] += 1
+        return zoo_prefill(*a, **kw)
+
+    def decode_rec(*a, **kw):
+        calls["decode"] += 1
+        return zoo_decode(*a, **kw)
+
+    rng = np.random.default_rng(0)
+    reqs = []
+    rounds, rps_low, rps_high = 8, 2.0, 8.0
+    ops.reset_launches()
+    _fa.flash_attention, _dec.decode_attention = fa_rec, dec_rec
+    model_zoo.prefill, model_zoo.decode = prefill_rec, decode_rec
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter()
+    try:
+        for rnd in range(rounds):
+            frac = min(rnd / max(rounds * 0.5, 1), 1.0)
+            n = int(round(rps_low + (rps_high - rps_low) * frac))
+            for _ in range(n):
+                L = int(rng.integers(64, 513))
+                toks = rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+                req = Request(rid=len(reqs), tokens=toks, max_new=max_new)
+                reqs.append(req)
+                if not cc.submit("stablelm", req):
+                    raise RuntimeError(f"request {req.rid} rejected")
+            rec = cc.tick()
+            log(f"[serve] round={rnd} submitted={n} "
+                f"edge={rec['tiers']['edge']} cloud={rec['tiers']['cloud']} "
+                f"steps={rec['steps']} R_t={rec['R']:.1f}%")
+        drained = cc.drain()
+        torch.cuda.synchronize()
+    finally:
+        _fa.flash_attention, _dec.decode_attention = fa_launch, dec_launch
+        model_zoo.prefill, model_zoo.decode = zoo_prefill, zoo_decode
+    secs = time.perf_counter() - t_serve
+    launches = dict(ops.launches)
+
+    served = {t.name: sum(r["tiers"][t.name] for r in cc.log)
+              for t in cc.tiers}
+    n_served = sum(served.values())
+    if n_served != len(reqs) or any(r.failed for r in reqs):
+        raise RuntimeError(f"served {n_served} of {len(reqs)} requests")
+    for r in reqs:
+        if (r.output is None or r.output.shape != (max_new,)
+                or r.output.min() < 0 or r.output.max() >= cfg.vocab_size):
+            raise RuntimeError(f"request {r.rid}: bad output {r.output}")
+    if launches["flash_attention"] <= 0 or launches["decode_attention"] <= 0:
+        raise RuntimeError(f"main path skipped a kernel: {launches}")
+    if launches["flash_attention_plain"] or launches["decode_attention_plain"]:
+        raise RuntimeError(f"main path ran a plain version: {launches}")
+    tokens = len(reqs) * max_new
+    log(f"[serve] served {n_served}/{len(reqs)} edge={served['edge']} "
+        f"cloud={served['cloud']} drain_ticks={drained} "
+        f"tokens={tokens} wall={secs:.2f}s tokens_per_s={tokens / secs:.1f} "
+        f"final_R_t={cc.log[-1]['R']:.2f}% launches={launches}")
+    log(f"[serve] {calls['prefill']} prefill calls, {calls['decode']} decode "
+        f"steps: K1 launches per prefill "
+        f"{launches['flash_attention'] / max(calls['prefill'], 1):g}, K2 "
+        f"launches per decode step "
+        f"{launches['decode_attention'] / max(calls['decode'], 1):g}")
+    log(f"[serve] K1 shapes (q, k) -> launches: "
+        f"{ {str(k): v for k, v in sorted(shapes['K1'].items())} }")
+    log(f"[serve] K2 shapes (q, k) -> launches: "
+        f"{ {str(k): v for k, v in sorted(shapes['K2'].items())} }")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def _time_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()                      # evict the inputs from L2
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def timing(shapes: dict, launches: dict) -> list:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    rows = []
+
+    # K1 at the main path's largest prefill bucket
+    (qs, ks) = max(shapes["K1"], key=lambda s: (s[0][1], shapes["K1"][s]))
+    B, S, Hq, D = qs
+    T, Hkv = ks[1], ks[2]
+    q, k, v, qp, kp = prefill_inputs(B, S, T, Hq, Hkv, D, torch.bfloat16, gen)
+    got = ops.flash_attention(q, k, v, qp, kp)
+    want = ref.flash_attention(q, k, v, qp, kp)
+    err = check_close("K1 timing inputs", got, want, "bfloat16")
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = _time_ms(lambda: ops.flash_attention(q, k, v, qp, kp), flush)
+    plain = _time_ms(lambda: ref.flash_attention(q, k, v, qp, kp), flush)
+    gqa = {"enable_gqa": True} if Hq != Hkv else {}
+    lib = _time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, **gqa), flush)
+    pairs = int(((qp[:, :, None] >= kp[:, None, :]) & (kp[:, None, :] >= 0))
+                .sum().item())                     # allowed (q, kv) pairs
+    flops = 4.0 * pairs * Hq * D                   # QK^T and P.V
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2 \
+        + (qp.numel() + kp.numel()) * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "launches": launches["flash_attention"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib,
+        "shape": f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16"})
+
+    # K2 at the cloud tier's decode batch, cache filled as on the main path
+    (qs, ks) = max(shapes["K2"], key=lambda s: (s[0][0], shapes["K2"][s]))
+    B, Hq, D = qs
+    T, Hkv = ks[1], ks[2]
+    cpu = torch.Generator().manual_seed(2)
+    fill = (torch.randint(64, 513, (B,), generator=cpu)   # prompt + new
+            + torch.randint(1, 33, (B,), generator=cpu)).clamp(max=T).tolist()
+    q, k, v, qp, kp = decode_inputs(B, T, Hq, Hkv, D, torch.bfloat16, gen,
+                                    fill=fill)
+    got = ops.decode_attention(q, k, v, qp, kp)
+    want = ref.decode_attention(q, k, v, qp, kp)
+    err = check_close("K2 timing inputs", got, want, "bfloat16")
+    qh = q[:, :, None].contiguous()                       # (B,H,1,D)
+    kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
+    mask = ((kp >= 0) & (kp <= qp[:, None]))[:, None, None, :]
+    ms = _time_ms(lambda: ops.decode_attention(q, k, v, qp, kp), flush)
+    plain = _time_ms(lambda: ref.decode_attention(q, k, v, qp, kp), flush)
+    gqa = {"enable_gqa": True} if Hq != Hkv else {}
+    lib = _time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, **gqa), flush)
+    valid = int(((kp >= 0) & (kp <= qp[:, None])).sum().item())
+    nbytes = (q.numel() + got.numel()) * 2 + valid * Hkv * D * 2 * 2 \
+        + (qp.numel() + kp.numel()) * 4            # only live slots are read
+    flops = 4.0 * valid * Hq * D
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    rows.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:189",
+        "launches": launches["decode_attention"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib,
+        "shape": f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+                 f"live_slots={valid}"})
+    for r in rows:
+        log(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms")
+    return rows
+
+
+# ---------------------------------------------------------------- main
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    card = card_line()
+    log(f"[card] {card}")
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    log(f"[build] kernels built in {build_kernels():.1f}s")
+    parity()
+    smoke_model_vs_cpu()
+    shapes: dict = {}
+    launches = serve_full(shapes)
+    rows = timing(shapes, launches)
+    log(f"[done] {time.perf_counter() - t_start:.1f}s")
+    print(card, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

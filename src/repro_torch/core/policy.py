@@ -1,0 +1,306 @@
+"""Traffic policies + the shared control loop.
+
+The port's counterpart of ``repro/core/policy.py``:
+
+  * :class:`Policy` — the protocol every traffic policy implements
+    (``init_state / observe / update / route``), plus :meth:`Policy.parse`
+    for the shorthands this slice supports: ``0``..``100`` (a static
+    split) and ``"auto"`` (the paper's Eqs (1)-(4)).  ``"auto+net"``,
+    ``"auto+hedge"`` and ``"+migrate"`` raise ``NotImplementedError``
+    until their slice is ported.
+  * :class:`StaticSplit`, :class:`AutoOffload`.
+  * :class:`ControlLoop` — one scrape-and-update cycle: latency windows,
+    in-flight queue-age mixing, demand RPS, policy update; one controller
+    boundary per adjacent tier pair.  The port keeps the reference's
+    per-boundary loop (the reference pins its vectorized rows path
+    bit-identical to it).
+
+Routing draws its uniforms from an explicit ``np.random.Generator`` that
+the caller owns, and hands them to :mod:`repro_torch.core.router`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import offload, router
+
+PolicySpec = Union[float, int, str, "Policy"]
+
+
+class Policy:
+    """Protocol + shared plumbing for traffic policies.
+
+    ``update`` answers what percentage R_t of each function's traffic
+    goes down-chain; ``route``/``route_tiers`` which queued requests
+    cross.  ``init_state``/``observe`` let stateful policies carry their
+    own state through the loop without the harness knowing its shape.
+    """
+
+    spec: str = "policy"
+
+    def init_state(self, num_functions: int) -> Any:
+        return None
+
+    def initial_R(self, num_functions: int) -> np.ndarray:
+        """R_t before the first update (Eq (4): R_t(0) = 0)."""
+        return np.zeros(num_functions, np.float32)
+
+    def observe(self, state: Any, latencies: np.ndarray,
+                valid: np.ndarray) -> Any:
+        """Scrape-time hook, called every interval before ``update``."""
+        return state
+
+    def update(self, state: Any, latencies: np.ndarray, valid: np.ndarray,
+               demand_rps: np.ndarray) -> Tuple[Any, np.ndarray]:
+        """One controller step -> (new_state, (F,) percentages)."""
+        raise NotImplementedError
+
+    # lint: ignore[parity-drift] -- the port imports nothing of repro;
+    # tests/test_torch_control.py::test_tier_distribution_matches_reference
+    # holds this copy against repro.core.policy.Policy.tier_distribution
+    def tier_distribution(self, R_all: np.ndarray,
+                          num_tiers: int) -> np.ndarray:
+        """Compose per-boundary percentages into an (F, num_tiers) tier
+        distribution (rows sum to 100; two tiers give ``[100 - R, R]``).
+        Boundary b's R_t is the share of the traffic reaching tier b that
+        continues to tier b+1."""
+        R_all = np.asarray(R_all, np.float32)
+        F = R_all.shape[1]
+        d = np.zeros((F, num_tiers), np.float32)
+        remain = np.full(F, 100.0, np.float32)
+        for b in range(num_tiers - 1):
+            d[:, b] = remain * (100.0 - R_all[b]) / 100.0
+            remain = remain * R_all[b] / 100.0
+        d[:, num_tiers - 1] = remain
+        return d
+
+    def route_tiers(self, rng: np.random.Generator, dist: np.ndarray,
+                    fn_ids: np.ndarray, num_functions: int) -> np.ndarray:
+        """Assign a batch over N tiers by the (F, N) distribution ->
+        (B,) int tier indices.  Draws (F, N) + (B,) uniforms from
+        ``rng``."""
+        B = len(fn_ids)
+        num_tiers = dist.shape[1]
+        if B == 0:
+            return np.zeros(0, np.int32)
+        if num_tiers == 1:
+            return np.zeros(B, np.int32)
+        extra_u = rng.random((num_functions, num_tiers), dtype=np.float32)
+        noise = rng.random(B, dtype=np.float32)
+        tiers = router.route_tiers(torch.as_tensor(dist),
+                                   torch.as_tensor(fn_ids),
+                                   torch.from_numpy(extra_u),
+                                   torch.from_numpy(noise))
+        return tiers.numpy()
+
+    @staticmethod
+    def parse(spec: PolicySpec,
+              offload_cfg: Optional[offload.OffloadConfig] = None
+              ) -> "Policy":
+        """``0``..``100`` (number or numeric string) -> StaticSplit;
+        ``"auto"`` -> AutoOffload; Policy instances pass through.  The
+        reference's ``+net``, ``+hedge`` and ``+migrate`` modifiers raise
+        ``NotImplementedError``; anything else ``ValueError``."""
+        if isinstance(spec, Policy):
+            return spec
+        if isinstance(spec, (int, float)):
+            return StaticSplit(float(spec))
+        if isinstance(spec, str):
+            s = spec.strip().lower()
+            try:
+                return StaticSplit(float(s))
+            except ValueError:
+                pass
+            parts = s.split("+")
+            mods = set(parts[1:])
+            if parts[0] == "auto" and not mods:
+                return AutoOffload(offload_cfg)
+            if parts[0] == "auto" and mods <= {"net", "hedge", "migrate"}:
+                raise NotImplementedError(
+                    f"policy {spec!r}: the +net, +hedge and +migrate "
+                    f"modifiers are not ported yet (ROADMAP.md, the "
+                    f"controls left out of the first slice)")
+        raise ValueError(f"unknown policy spec {spec!r}")
+
+
+class StaticSplit(Policy):
+    """Fixed percentage of traffic down-chain (the 0/25/50/75/100
+    columns of the paper's Table 2)."""
+
+    def __init__(self, pct: float):
+        if not 0.0 <= pct <= 100.0:
+            raise ValueError(f"static split must be in [0, 100], got {pct}")
+        self.pct = float(pct)
+        self.spec = str(self.pct)
+
+    def initial_R(self, num_functions: int) -> np.ndarray:
+        return np.full(num_functions, self.pct, np.float32)
+
+    def update(self, state, latencies, valid, demand_rps):
+        return state, np.full(latencies.shape[0], self.pct, np.float32)
+
+
+class AutoOffload(Policy):
+    """The paper's adaptive controller: Eqs (1)-(4) on the latency
+    windows of the boundary's tier."""
+
+    spec = "auto"
+
+    def __init__(self, cfg: Optional[offload.OffloadConfig] = None):
+        self.cfg = cfg or offload.OffloadConfig()
+
+    def init_state(self, num_functions: int) -> offload.OffloadState:
+        return offload.OffloadState.init(num_functions, self.cfg)
+
+    def update(self, state, latencies, valid, demand_rps):
+        state, R = offload.offload_update(
+            state, torch.as_tensor(np.asarray(latencies, np.float32)),
+            torch.as_tensor(np.asarray(valid, bool)), self.cfg)
+        return state, R.numpy().astype(np.float32)
+
+
+class ControlLoop:
+    """The shared scrape-and-update cycle (one per deployment).
+
+    Each step reads the per-function latency windows, mixes in the ages
+    of requests still queued at the gateway (the onset signal that lets
+    Eq (1) fire before slow completions drain out), derives demand RPS
+    and asks each boundary's policy for fresh R_t percentages.  Boundary
+    b is driven by tier b's signals and yields R_t[b], the percentage of
+    tier b's load pushed down the chain.
+    """
+
+    def __init__(self, policy: PolicySpec, num_functions: int,
+                 window: int = 64, control_interval_s: float = 1.0,
+                 num_tiers: int = 2,
+                 boundary_policies: Optional[Sequence[PolicySpec]] = None):
+        if num_tiers < 1:
+            raise ValueError(f"num_tiers must be >= 1, got {num_tiers}")
+        self.num_functions = num_functions
+        self.window = window
+        self.control_interval_s = control_interval_s
+        self.num_tiers = int(num_tiers)
+        self.num_boundaries = max(self.num_tiers - 1, 1)
+        if boundary_policies is None:
+            self.policy = Policy.parse(policy)
+            self.policies = [self.policy] * self.num_boundaries
+        else:
+            if len(boundary_policies) != self.num_boundaries:
+                raise ValueError(
+                    f"{self.num_boundaries} boundaries need "
+                    f"{self.num_boundaries} policies, "
+                    f"got {len(boundary_policies)}")
+            self.policies = [Policy.parse(p) for p in boundary_policies]
+            self.policy = self.policies[0]
+        self.states = [self.policies[b].init_state(num_functions)
+                       for b in range(self.num_boundaries)]
+        self.R_all = np.stack([self.policies[b].initial_R(num_functions)
+                               for b in range(self.num_boundaries)])
+        self.steps = 0
+
+    @staticmethod
+    def _sample_ages(ages: Sequence[float], window: int) -> List[float]:
+        """Evenly subsample up to ``window // 2`` in-flight ages."""
+        k = min(len(ages), window // 2)
+        return [ages[int(i * len(ages) / k)] for i in range(k)] if k else []
+
+    @staticmethod
+    # lint: ignore[parity-drift] -- the port imports nothing of repro;
+    # tests/test_torch_control.py::test_mix_queue_ages_matches_reference
+    # holds this copy against repro.core.policy.ControlLoop.mix_queue_ages
+    def mix_queue_ages(lat: np.ndarray, valid: np.ndarray, fn: int,
+                       ages: Sequence[float], window: int) -> None:
+        """Displace the oldest completions of function ``fn`` with an even
+        spread of in-flight queue ages (in place)."""
+        sel = ControlLoop._sample_ages(ages, window)
+        if sel:
+            lat[fn, :len(sel)] = sel
+            valid[fn, :len(sel)] = True
+
+    def _rps(self, arrivals: Optional[Sequence[float]]) -> np.ndarray:
+        """Arrival counts -> (F,) demand RPS, floored at 1e-3 (divided in
+        float64, rounded once to float32, as the reference)."""
+        if arrivals is None:
+            return np.full(self.num_functions, np.float32(1e-3), np.float32)
+        a = np.asarray(arrivals, np.float64)
+        return np.maximum(a / self.control_interval_s, 1e-3).astype(
+            np.float32)
+
+    def _per_boundary_rps(self, arrivals: Optional[Sequence]
+                          ) -> List[np.ndarray]:
+        if (arrivals is not None and len(arrivals)
+                and isinstance(arrivals[0], (list, tuple, np.ndarray))):
+            if len(arrivals) != self.num_boundaries:
+                raise ValueError(
+                    f"{self.num_boundaries} boundaries need "
+                    f"{self.num_boundaries} arrival counts, "
+                    f"got {len(arrivals)}")
+            return [self._rps(a) for a in arrivals]
+        return [self._rps(arrivals)] * self.num_boundaries
+
+    def _step_boundary(self, b: int, latencies: np.ndarray,
+                       valid: np.ndarray,
+                       queue_ages: Optional[Sequence[Sequence[float]]],
+                       rps: np.ndarray) -> np.ndarray:
+        pol = self.policies[b]
+        lat = np.array(latencies, np.float32, copy=True)
+        val = np.array(valid, bool, copy=True)
+        if queue_ages is not None:
+            for fn, ages in enumerate(queue_ages):
+                if ages:
+                    self.mix_queue_ages(lat, val, fn, ages, self.window)
+        self.states[b] = pol.observe(self.states[b], lat, val)
+        if val.any():
+            self.states[b], R = pol.update(self.states[b], lat, val, rps)
+            self.R_all[b] = np.asarray(R, np.float32)
+        return self.R_all[b]
+
+    def step(self, latencies: np.ndarray, valid: np.ndarray,
+             queue_ages: Optional[Sequence[Sequence[float]]] = None,
+             arrivals: Optional[Sequence[float]] = None) -> np.ndarray:
+        """One control interval on the ingress boundary -> (F,) R_t.
+        Deeper boundaries are left untouched (see :meth:`step_tiers`)."""
+        out = self._step_boundary(0, latencies, valid, queue_ages,
+                                  self._rps(arrivals))
+        self.steps += 1
+        return out
+
+    def step_tiers(self, latencies: Sequence[np.ndarray],
+                   valid: Sequence[np.ndarray],
+                   queue_ages: Optional[Sequence] = None,
+                   arrivals: Optional[Sequence] = None) -> np.ndarray:
+        """One control interval over every boundary of the chain.
+
+        latencies, valid: per-boundary (F, W) windows; queue_ages:
+        per-boundary, per-function in-flight ages (or None); arrivals:
+        one flat per-function count shared by every boundary, or one per
+        boundary.  Returns the (num_tiers-1, F) stack of R_t.
+        """
+        if len(latencies) != self.num_boundaries:
+            raise ValueError(
+                f"{self.num_boundaries} boundaries need {self.num_boundaries}"
+                f" latency windows, got {len(latencies)}")
+        if queue_ages is not None and len(queue_ages) != self.num_boundaries:
+            raise ValueError(
+                f"{self.num_boundaries} boundaries need {self.num_boundaries}"
+                f" queue-age entries, got {len(queue_ages)}")
+        per_b = self._per_boundary_rps(arrivals)
+        for b in range(self.num_boundaries):
+            qa = queue_ages[b] if queue_ages is not None else None
+            self._step_boundary(b, latencies[b], valid[b], qa, per_b[b])
+        self.steps += 1
+        return self.R_all
+
+    def dist(self) -> np.ndarray:
+        """The current (F, num_tiers) routing distribution."""
+        return self.policy.tier_distribution(self.R_all, self.num_tiers)
+
+    def route_tiers(self, rng: np.random.Generator,
+                    fn_ids: np.ndarray) -> np.ndarray:
+        """Assign a queued batch over all N tiers -> (B,) tier indices."""
+        return self.policy.route_tiers(rng, self.dist(), fn_ids,
+                                       self.num_functions)

@@ -1,0 +1,28 @@
+"""Device resolution for the port's entry points.
+
+Every entry point takes an explicit ``device`` (default ``"cuda"``).
+There is no fallback: asking for CUDA on a machine without a card
+raises, and the CPU is used only when the caller passes
+``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device]
+
+
+def resolve(device: DeviceLike = "cuda") -> torch.device:
+    """``device`` as a :class:`torch.device`; raises for an unavailable
+    CUDA device instead of quietly running elsewhere."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,99 @@
+"""Dispatch over the attention kernels, by the device of the tensors.
+
+The counterpart of ``repro/kernels/ops.py``.  A CUDA tensor always goes
+through the hand-written kernel (K1 ``flash_attention.cu``, K2
+``decode_attention.cu``); a CPU tensor goes through the plain PyTorch
+version in :mod:`repro_torch.kernels.ref`.  There is no switch and no
+fallback: a kernel that cannot build or launch raises.
+
+``launches`` counts, per kernel and per plain version, the calls that
+actually ran it (plain integers; :func:`reset_launches` zeroes them), so
+a run can show which path the model took.
+
+K1 sits inside a :class:`torch.autograd.Function` whose backward
+recomputes through the plain version, as ``custom_vjp`` does in the
+reference (``repro/kernels/ops.py:39-62``); serving never takes it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref
+
+launches: Dict[str, int] = {
+    "flash_attention": 0, "flash_attention_plain": 0,
+    "decode_attention": 0, "decode_attention_plain": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _on_cuda(t: torch.Tensor, what: str) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: no kernel for device {t.device}")
+
+
+def _flash_forward(q, k, v, q_pos, kv_pos, causal, window, softcap):
+    if _on_cuda(q, "flash_attention"):
+        out = _fa.flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                  window=window, softcap=softcap)
+        launches["flash_attention"] += 1
+        return out
+    launches["flash_attention_plain"] += 1
+    return ref.flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                               window=window, softcap=softcap)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, softcap):
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos)
+        ctx.opts = (causal, window, softcap)
+        return _flash_forward(q, k, v, q_pos, kv_pos, causal, window,
+                              softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_pos, kv_pos = ctx.saved_tensors
+        causal, window, softcap = ctx.opts
+        with torch.enable_grad():
+            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+            out = ref.flash_attention(qd, kd, vd, q_pos, kv_pos,
+                                      causal=causal, window=window,
+                                      softcap=softcap)
+            dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, q_pos, kv_pos, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """q: (B,S,Hq,D); k/v: (B,T,Hkv,D); q_pos (B,S), kv_pos (B,T) int32.
+    Returns (B,S,Hq,D) in q.dtype."""
+    return _FlashAttention.apply(q, k, v, q_pos, kv_pos, causal, window,
+                                 softcap)
+
+
+def decode_attention(q, k, v, q_pos, kv_pos, window: Optional[int] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """q: (B,Hq,D); k/v: (B,T,Hkv,D); q_pos (B,), kv_pos (B,T) int32.
+    Returns (B,Hq,D) in q.dtype (inference only: no backward)."""
+    if _on_cuda(q, "decode_attention"):
+        out = _dec.decode_attention(q, k, v, q_pos, kv_pos, window=window,
+                                    softcap=softcap)
+        launches["decode_attention"] += 1
+        return out
+    launches["decode_attention_plain"] += 1
+    return ref.decode_attention(q, k, v, q_pos, kv_pos, window=window,
+                                softcap=softcap)

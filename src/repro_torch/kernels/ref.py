@@ -1,0 +1,61 @@
+"""Plain PyTorch versions of the attention kernels.
+
+The counterpart of ``repro/kernels/ref.py:18-51``: the O(S^2) materialized
+score oracle with the positional mask, float32 accumulation and fully
+masked rows zeroed.  The CPU tests run these; on the card
+``chip_smoke.py`` holds the CUDA kernels against them.  Nothing on the
+main path calls them when the tensors live on a card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: Optional[int],
+          causal: bool) -> torch.Tensor:
+    """(..., S, T) bool — True where attention is allowed.  Slots with
+    kv_pos < 0 are empty; causal keeps d = q_pos - kv_pos >= 0; a window
+    keeps d < window."""
+    d = q_pos[..., :, None] - kv_pos[..., None, :]
+    ok = kv_pos[..., None, :] >= 0
+    if causal:
+        ok = ok & (d >= 0)
+    if window is not None:
+        ok = ok & (d < window)
+    return ok
+
+
+def flash_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """q: (B,S,Hq,D); k/v: (B,T,Hkv,D); q_pos (B,S), kv_pos (B,T) int.
+    Returns (B,S,Hq,D) in q.dtype; query head h reads kv head h // G."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qf = q.reshape(B, S, Hkv, G, D).float() * D ** -0.5
+    s = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    ok = _mask(q_pos, kv_pos, window, causal)                 # (B,S,T)
+    s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    any_ok = ok.any(dim=-1)[:, None, None, :, None]
+    p = torch.where(any_ok, p, torch.zeros_like(p))
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def decode_attention(q, k, v, q_pos, kv_pos, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """One query token per sequence. q: (B,Hq,D); k/v: (B,T,Hkv,D);
+    q_pos (B,); kv_pos (B,T).  Returns (B,Hq,D) in q.dtype."""
+    out = flash_attention(q[:, None], k, v, q_pos[:, None], kv_pos,
+                          causal=True, window=window, softcap=softcap)
+    return out[:, 0]

@@ -1,0 +1,101 @@
+"""Continuum serving launcher (``python -m repro_torch.launch.serve``).
+
+Boots the weak-edge / strong-cloud pair through the
+``repro_torch.platform.Continuum`` facade, deploys one model endpoint via
+the replication controller, pushes a ramped open-loop request stream
+through the ingress gateway, and reports per round how the traffic
+policy split the load — the port's version of ``python -m
+repro.launch.serve``.  Runs on the card by default; ``--device cpu``
+runs the plain attention versions on the CPU.  ``--full`` serves the
+full-width configuration instead of the smoke one (weights are random,
+drawn from ``--seed`` on the device).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --rounds 20
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --rounds 6 --policy auto
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.device import resolve
+from repro_torch.models import model_zoo
+from repro_torch.platform import (AutoscalingPolicy, Continuum,
+                                  FunctionSpec, OffloadConfig, Request,
+                                  TierConfig)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-1.6b",
+                    choices=list(configs.ARCHS))
+    ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--rps-low", type=float, default=1.0)
+    ap.add_argument("--rps-high", type=float, default=8.0)
+    ap.add_argument("--edge-slots", type=int, default=2)
+    ap.add_argument("--cloud-slots", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=4)
+    ap.add_argument("--policy", default="auto",
+                    help="traffic policy: 0..100 | auto")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--full", action="store_true",
+                    help="serve the full-width config, not the smoke one")
+    args = ap.parse_args()
+
+    device = resolve(args.device)
+    cfg = (configs.get_config(args.arch) if args.full
+           else configs.get_smoke_config(args.arch))
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = model_zoo.init(cfg, gen)
+
+    cc = Continuum(
+        edge=TierConfig(slots=args.edge_slots, max_len=64),
+        cloud=TierConfig(slots=args.cloud_slots, max_len=64,
+                         extra_latency_s=0.02),
+        policy=args.policy, offload_cfg=OffloadConfig(), seed=args.seed,
+        device=device)
+    spec = FunctionSpec(name=args.arch, arch=args.arch, revision=1,
+                        autoscaling=AutoscalingPolicy())
+    cc.deploy(spec, cfg, params)
+
+    rng = np.random.default_rng(args.seed)
+    rid = 0
+    names = [t.name for t in cc.tiers]
+    for rnd in range(args.rounds):
+        frac = min(rnd / max(args.rounds * 0.5, 1), 1.0)
+        rps = args.rps_low + (args.rps_high - args.rps_low) * frac
+        n = rng.poisson(rps)
+        for _ in range(n):
+            toks = rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
+            cc.submit(args.arch, Request(rid=rid, tokens=toks,
+                                         max_new=args.max_new))
+            rid += 1
+        rec = cc.tick()
+        per_tier = " ".join(f"{nm}={rec['tiers'][nm]:3d}" for nm in names)
+        backlog = sum(rec["backlog"].values())
+        print(f"round={rnd:3d} rps={rps:5.1f} queued={n:3d} {per_tier} "
+              f"steps={rec['steps']:3d} backlog={backlog:3d} "
+              f"R_t={rec['R']:5.1f}%")
+    drained = cc.drain()
+
+    totals = {nm: sum(r["tiers"][nm] for r in cc.log) for nm in names}
+    total = sum(totals.values())
+    steps = sum(r["steps"] for r in cc.log)
+    print(f"\nserved {' '.join(f'{nm}={n}' for nm, n in totals.items())} "
+          f"offload_frac={(total - totals[names[0]]) / max(total, 1):.2f} "
+          f"tokens_per_decode_step="
+          f"{total * args.max_new / max(steps, 1):.1f} "
+          f"drain_ticks={drained} "
+          f"rejected={sum(r['rejected'] for r in cc.log)} "
+          f"device={device}")
+
+
+if __name__ == "__main__":
+    main()

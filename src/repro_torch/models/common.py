@@ -1,0 +1,212 @@
+"""Shared model substrate: config, param tables, norms, rotary embeddings,
+activations and the token embedding.
+
+The counterpart of ``repro/models/common.py``.  Parameters live in a flat
+dict ``{path: tensor}`` under the reference's keys, and per-layer
+parameters are stacked along a leading ``layers`` axis, so the reference's
+parameters carry over unchanged (``repro_torch.bridge``).  The transformer
+walks that axis with a Python loop instead of ``lax.scan``.
+
+Mixed precision follows the reference: parameters are stored in
+``cfg.param_dtype``, matmuls run in ``cfg.compute_dtype`` and reductions
+(norms, softmax, logits) accumulate in float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters (the dense-family subset of the
+    reference's config) with torch dtypes."""
+
+    name: str = "model"
+    family: str = "dense"
+    num_layers: int = 2
+    d_model: int = 128
+    num_heads: int = 2
+    num_kv_heads: int = 2
+    head_dim: int = 64
+    d_ff: int = 512
+    vocab_size: int = 1024
+
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: Optional[int] = None
+    attn_logit_softcap: Optional[float] = None
+
+    activation: str = "swiglu"       # the only one ported
+    norm_eps: float = 1e-5
+    norm_type: str = "rmsnorm"       # rmsnorm | layernorm
+    tie_embeddings: bool = False
+
+    param_dtype: torch.dtype = torch.bfloat16
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    def param_count(self) -> int:
+        """Total parameters (exact, from the spec table)."""
+        from repro_torch.models import model_zoo
+        return sum(int(math.prod(s.shape))
+                   for s in model_zoo.param_table(self).values())
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Declared parameter: shape, logical axis names and initializer."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"             # normal | zeros | ones
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             f"must have the same rank")
+
+
+def stack_layers(table: Mapping[str, ParamSpec], num_layers: int,
+                 prefix: str = "layers/") -> Dict[str, ParamSpec]:
+    """Stack a single-layer table along a leading 'layers' axis."""
+    return {prefix + k: ParamSpec((num_layers,) + s.shape,
+                                  ("layers",) + s.axes, s.init, s.scale)
+            for k, s in table.items()}
+
+
+def _init_leaf(spec: ParamSpec, dtype: torch.dtype,
+               generator: torch.Generator) -> torch.Tensor:
+    dev = generator.device
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=dev)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=dev)
+    if spec.init != "normal":
+        raise ValueError(f"unknown initializer {spec.init!r}")
+    # fan-in scaled normal over the per-layer shape (as the reference)
+    shape = (spec.shape[1:] if spec.axes and spec.axes[0] == "layers"
+             else spec.shape)
+    fan_in = max(int(math.prod(shape[:-1])), 1)
+    std = spec.scale / math.sqrt(fan_in)
+    w = torch.randn(spec.shape, generator=generator, device=dev,
+                    dtype=torch.float32)
+    return (w * std).to(dtype)
+
+
+def init_params(table: Mapping[str, ParamSpec], dtype: torch.dtype,
+                generator: torch.Generator) -> Params:
+    """Materialize a parameter dict from a spec table, deterministically
+    from ``generator`` and on its device (so the full width initialises
+    on the card).  Draws differ from ``jax.random``; tests that compare
+    with the reference carry its parameters over with
+    :func:`repro_torch.bridge.params_from_numpy` instead."""
+    return {path: _init_leaf(spec, dtype, generator)
+            for path, spec in sorted(table.items())}
+
+
+def layer_slice(params: Params, prefix: str = "layers/"
+                ) -> Tuple[Params, Params]:
+    """Split params into (stacked per-layer, rest)."""
+    stacked = {k[len(prefix):]: v for k, v in params.items()
+               if k.startswith(prefix)}
+    rest = {k: v for k, v in params.items() if not k.startswith(prefix)}
+    return stacked, rest
+
+
+# --------------------------------------------------------------------------
+# Norms / activations / rotary
+# --------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * gamma.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm computed in float32 (population variance, as the
+    reference), cast back to x.dtype."""
+    return F.layer_norm(x.float(), x.shape[-1:], gamma.float(), beta.float(),
+                        eps).to(x.dtype)
+
+
+def apply_norm(cfg: ModelConfig, params: Params, prefix: str,
+               x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, params[prefix + "/scale"],
+                          params[prefix + "/bias"], cfg.norm_eps)
+    return rms_norm(x, params[prefix + "/scale"], cfg.norm_eps)
+
+
+def norm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """Specs for one norm under a caller-supplied prefix."""
+    d = cfg.d_model
+    specs = {"scale": ParamSpec((d,), ("embed",), "ones")}
+    if cfg.norm_type == "layernorm":
+        specs["bias"] = ParamSpec((d,), ("embed",), "zeros")
+    return specs
+
+
+def activate(cfg: ModelConfig, gate: torch.Tensor,
+             up: Optional[torch.Tensor]) -> torch.Tensor:
+    """MLP nonlinearity: swiglu, silu(gate)*up.  The other activations
+    belong to families this package does not port yet."""
+    if cfg.activation != "swiglu":
+        raise NotImplementedError(
+            f"activation {cfg.activation!r} is not ported; only the dense "
+            f"swiglu family (stablelm-1.6b) is")
+    if up is None:
+        raise ValueError("swiglu activation requires the `up` projection")
+    return F.silu(gate) * up
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device: Optional[torch.device] = None) -> torch.Tensor:
+    """(head_dim/2,) inverse frequencies."""
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    # a Python-float base: a tensor built from ``theta`` on the card would
+    # be a host-to-device copy, which waits for the stream on every call
+    return 1.0 / torch.pow(float(theta), exps)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin), each (..., S, 1, D/2) float32, for positions (..., S).
+    Every layer rotates by the same tables, so a forward pass builds them
+    once."""
+    freqs = rope_frequencies(head_dim, theta, positions.device)  # (D/2,)
+    angles = positions[..., None].float() * freqs            # (..., S, D/2)
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """Rotary position embedding over the full head dim.
+
+    x: (..., S, H, D); positions: broadcastable to (..., S); ``tables``
+    are :func:`rope_tables` of the same positions, when already built.
+    """
+    cos, sin = tables or rope_tables(positions, x.shape[-1], theta)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
+                 compute_dtype: torch.dtype) -> torch.Tensor:
+    """Input embedding lookup."""
+    return embed[tokens].to(compute_dtype)

@@ -1,0 +1,282 @@
+"""Decoder-only dense transformer (the dense family of the reference).
+
+The counterpart of ``repro/models/transformer.py``.  Parameters are the
+reference's flat dict with per-layer weights stacked on a leading
+``layers`` axis; the layer stack is a Python loop over that axis (the
+reference's ``lax.scan``).  The KV cache keeps the reference's scan
+layout: ``{"k", "v": (L, B, W, Hkv, Dh), "pos": (L, B, W) int32}`` with
+``pos = -1`` marking an empty slot.
+
+Unlike the reference, which returns a new cache, the port writes the
+cache **in place** (a full-width cache is gigabytes; copying it per step
+would dominate decode) and returns the same dict.  ``decode_step`` takes
+an optional per-row ``active`` mask: rows outside it are not written, so
+their cache stays bit-for-bit as it was — the contract the reference's
+engine gets from ``jnp.where(active, new, old)``.
+
+Modes: ``prefill`` (full sequence, fills the cache) and ``decode`` (one
+token per row against the cache).  Training is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import attention
+from repro_torch.models.common import (ModelConfig, ParamSpec, Params,
+                                       activate, apply_norm, apply_rope,
+                                       embed_tokens, layer_slice, norm_specs,
+                                       rope_tables, stack_layers)
+
+Cache = Dict[str, torch.Tensor]
+
+
+# --------------------------------------------------------------------------
+# Parameter tables (identical keys and shapes to the reference)
+# --------------------------------------------------------------------------
+
+
+def _prefixed(prefix: str, table: Dict[str, ParamSpec]) -> Dict[str, ParamSpec]:
+    return {prefix + k: v for k, v in table.items()}
+
+
+def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, Hq, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    t = {
+        "wq": ParamSpec((d, Hq, Dh), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, Hkv, Dh), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, Hkv, Dh), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((Hq, Dh, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = ParamSpec((Hq, Dh), ("heads", "head_dim"), "zeros")
+        t["bk"] = ParamSpec((Hkv, Dh), ("kv_heads", "head_dim"), "zeros")
+        t["bv"] = ParamSpec((Hkv, Dh), ("kv_heads", "head_dim"), "zeros")
+    t.update(_prefixed("norm/", norm_specs(cfg)))
+    return t
+
+
+def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, F = cfg.d_model, cfg.d_ff
+    t = {"wi": ParamSpec((d, F), ("embed", "ffn")),
+         "wo": ParamSpec((F, d), ("ffn", "embed"))}
+    if cfg.activation == "swiglu":
+        t["wg"] = ParamSpec((d, F), ("embed", "ffn"))
+    t.update(_prefixed("norm/", norm_specs(cfg)))
+    return t
+
+
+def dense_layer_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    return {**_prefixed("attn/", attn_specs(cfg)),
+            **_prefixed("mlp/", mlp_specs(cfg))}
+
+
+def head_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """Embedding + final norm + output head."""
+    t = {"embed": ParamSpec((cfg.vocab_size, cfg.d_model),
+                            ("vocab_in", "embed_table")),
+         **_prefixed("final_norm/", norm_specs(cfg))}
+    if not cfg.tie_embeddings:
+        t["lm_head"] = ParamSpec((cfg.vocab_size, cfg.d_model),
+                                 ("vocab", "embed"))
+    return t
+
+
+def param_table(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    return {**head_specs(cfg),
+            **stack_layers(dense_layer_specs(cfg), cfg.num_layers)}
+
+
+# --------------------------------------------------------------------------
+# Blocks
+# --------------------------------------------------------------------------
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ w (d, *out) -> (..., *out), in x.dtype."""
+    d = w.shape[0]
+    y = x @ w.to(x.dtype).reshape(d, -1)
+    return y.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def qkv_project(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                positions: torch.Tensor, prefix: str = "attn/", rope=None):
+    """x (B,S,d) -> q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh), rope applied
+    (``rope``: the forward pass's :func:`rope_tables`, when built)."""
+    q = _proj(x, p[prefix + "wq"])
+    k = _proj(x, p[prefix + "wk"])
+    v = _proj(x, p[prefix + "wv"])
+    if cfg.qkv_bias:
+        q = q + p[prefix + "bq"].to(x.dtype)
+        k = k + p[prefix + "bk"].to(x.dtype)
+        v = v + p[prefix + "bv"].to(x.dtype)
+    q = apply_rope(q, positions, cfg.rope_theta, rope)
+    k = apply_rope(k, positions, cfg.rope_theta, rope)
+    return q, k, v.contiguous()
+
+
+def _cache_write(cache: Cache, k: torch.Tensor, v: torch.Tensor,
+                 positions: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None) -> None:
+    """Write new k/v (B,S,Hkv,Dh) in place at slots pos % W (rolling or
+    full), for every row or only the row indices in ``rows``.
+
+    For rolling caches only the last W tokens are written (earlier ones
+    would be overwritten anyway; slicing keeps the slots unique).
+    """
+    W = cache["k"].shape[1]
+    if positions.shape[1] > W:
+        k, v, positions = k[:, -W:], v[:, -W:], positions[:, -W:]
+    if rows is None:
+        rows = torch.arange(positions.shape[0], device=positions.device)
+    else:
+        k, v, positions = k[rows], v[rows], positions[rows]
+    slots = positions.remainder(W)                          # (n,S)
+    b = rows[:, None]
+    cache["k"][b, slots] = k.to(cache["k"].dtype)
+    cache["v"][b, slots] = v.to(cache["v"].dtype)
+    cache["pos"][b, slots] = positions.to(cache["pos"].dtype)
+
+
+def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                    positions: torch.Tensor, cache: Optional[Cache],
+                    mode: str, rows: Optional[torch.Tensor] = None,
+                    prefix: str = "attn/", rope=None) -> torch.Tensor:
+    """Pre-norm attention residual branch (writes ``cache`` in place)."""
+    window = cfg.sliding_window
+    h = apply_norm(cfg, p, prefix + "norm", x)
+    q, k, v = qkv_project(cfg, p, h, positions, prefix, rope)
+    if mode == "decode":
+        # x: (B,1,d); the cache holds the history INCLUDING this token
+        _cache_write(cache, k, v, positions, rows)
+        o = attention.decode_attention(cfg, q[:, 0], cache["k"], cache["v"],
+                                       positions[:, 0].contiguous(),
+                                       cache["pos"], window=window)
+        o = o[:, None]                                        # (B,1,Hq,Dh)
+    else:
+        o = attention.flash_attention(cfg, q, k, v, positions, positions,
+                                      causal=True, window=window)
+        if mode == "prefill":
+            _cache_write(cache, k, v, positions)
+    B, S = o.shape[:2]
+    wo = p[prefix + "wo"]
+    return o.reshape(B, S, -1) @ wo.to(x.dtype).reshape(-1, wo.shape[-1])
+
+
+def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              prefix: str = "mlp/") -> torch.Tensor:
+    h = apply_norm(cfg, p, prefix + "norm", x)
+    gate = h @ p[prefix + "wi"].to(x.dtype)
+    up = h @ p[prefix + "wg"].to(x.dtype) if cfg.activation == "swiglu" \
+        else None
+    return activate(cfg, gate, up) @ p[prefix + "wo"].to(x.dtype)
+
+
+def dense_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                positions: torch.Tensor, cache: Optional[Cache], mode: str,
+                rows: Optional[torch.Tensor] = None,
+                rope=None) -> torch.Tensor:
+    x = x + attention_block(cfg, p, x, positions, cache, mode, rows,
+                            rope=rope)
+    return x + mlp_block(cfg, p, x)
+
+
+def forward(cfg: ModelConfig, params: Params, embeds: torch.Tensor,
+            positions: torch.Tensor, cache: Optional[Cache], mode: str,
+            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run the layer stack (a loop over the stacked ``layers`` axis);
+    layer i reads and writes slice i of every cache leaf."""
+    stacked, _ = layer_slice(params)
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x = embeds
+    for i in range(cfg.num_layers):
+        layer_params = {k: v[i] for k, v in stacked.items()}
+        layer_cache = ({k: v[i] for k, v in cache.items()}
+                       if cache is not None else None)
+        x = dense_layer(cfg, layer_params, x, positions, layer_cache, mode,
+                        rows, rope)
+    return x
+
+
+# --------------------------------------------------------------------------
+# Top-level model functions
+# --------------------------------------------------------------------------
+
+
+def assemble_embeds(cfg: ModelConfig, params: Params,
+                    batch: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token embeddings (B,S,d) + absolute positions (B,S) int32
+    (``batch["offset"]`` (B,) shifts each row's positions)."""
+    tokens = batch["tokens"]
+    emb = embed_tokens(params["embed"], tokens, cfg.compute_dtype)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
+    offset = batch.get("offset")
+    if offset is not None:
+        positions = positions + offset[:, None].to(torch.int32)
+    return emb, positions.expand(B, S).contiguous()
+
+
+def output_head(cfg: ModelConfig, params: Params,
+                x: torch.Tensor) -> torch.Tensor:
+    """Final norm + float32 logits for the given hidden states."""
+    x = apply_norm(cfg, params, "final_norm", x)
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return x.float() @ w.float().t()
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               device=None) -> Cache:
+    """Allocate the KV cache in the scan layout: k/v (L,B,W,Hkv,Dh) zeros,
+    pos (L,B,W) = -1.  A sliding window caps W at the window width."""
+    W = max_len if cfg.sliding_window is None else min(cfg.sliding_window,
+                                                       max_len)
+    L, Hkv, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    kv = (L, batch_size, W, Hkv, Dh)
+    return {"k": torch.zeros(kv, dtype=cfg.compute_dtype, device=device),
+            "v": torch.zeros(kv, dtype=cfg.compute_dtype, device=device),
+            "pos": torch.full((L, batch_size, W), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            cache: Cache, lengths: Optional[torch.Tensor] = None):
+    """Full-sequence forward; fills ``cache`` in place.
+    Returns (last_logits (B,V) float32, cache).
+
+    ``lengths`` (B,) selects each row's true last prompt position when the
+    batch is right-padded to a shared bucket length (causal masking keeps
+    positions < length unaffected by the padding; padded cache positions
+    carry pos > t and stay masked until decode overwrites them).
+    """
+    emb, positions = assemble_embeds(cfg, params, batch)
+    x = forward(cfg, params, emb, positions, cache, "prefill")
+    B, S = x.shape[:2]
+    if lengths is None:
+        xl = x[:, -1:]
+    else:
+        idx = (torch.as_tensor(lengths, device=x.device).long() - 1
+               ).clamp(0, S - 1)
+        xl = x[torch.arange(B, device=x.device), idx][:, None]
+    return output_head(cfg, params, xl)[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
+                tokens: torch.Tensor, t: torch.Tensor,
+                active: Optional[torch.Tensor] = None):
+    """One decode step. tokens: (B,), t: (B,) current positions; ``active``
+    (B,) bool limits the cache writes to those rows.
+    Returns (logits (B,V) float32, cache)."""
+    batch = {"tokens": tokens[:, None], "offset": t}
+    emb, positions = assemble_embeds(cfg, params, batch)
+    rows = None
+    if active is not None:
+        # index the rows on the host (the engine's mask lives there), so
+        # the step issues no device-to-host sync
+        rows = torch.nonzero(active.cpu().to(torch.bool)).squeeze(1).to(
+            tokens.device)
+    x = forward(cfg, params, emb, positions, cache, "decode", rows)
+    return output_head(cfg, params, x)[:, 0], cache

@@ -1,0 +1,239 @@
+"""The port's attention kernels against the JAX reference's.
+
+On the CPU the port's ``kernels.ops`` runs the plain PyTorch versions;
+they are held against ``repro.kernels.ops`` (the Pallas kernels in
+interpret mode, as ``tests/test_kernels.py`` runs them) and against
+``repro.kernels.ref``, on the same inputs made with numpy from a seed.
+Tolerances are the reference's own (``tests/test_kernels.py:17-19``):
+2e-5 abs / 2e-4 rel in float32, 2e-2 in bfloat16.
+
+The ``gpu`` tests hold each CUDA kernel against its plain version on the
+card (the check ``chip_smoke.py`` runs); they skip without one.  The
+reference is imported through the ``jax_ref`` fixture, so on the card,
+where JAX is not installed, ``python -m pytest -m gpu
+tests/test_torch_kernels.py`` runs the ``gpu`` tests alone.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ref as t_ref
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The JAX reference: its kernel entry points (Pallas in interpret
+    mode on the CPU) and its oracles."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops, ref
+    return types.SimpleNamespace(jnp=jnp, ops=ops, ref=ref)
+
+
+def _tol(dtype_name):
+    return (dict(atol=2e-2, rtol=2e-2) if dtype_name == "bfloat16"
+            else dict(atol=2e-5, rtol=2e-4))
+
+
+def _both(jr, x, dtype_name):
+    """One float32 numpy array as (jax, torch) arrays of the dtype (both
+    round float32 -> bfloat16 to nearest even, so the bits agree)."""
+    jd = jr.jnp.bfloat16 if dtype_name == "bfloat16" else jr.jnp.float32
+    return (jr.jnp.asarray(x).astype(jd),
+            torch.from_numpy(x).to(DTYPES[dtype_name]))
+
+
+def _close(got_t, want_j, dtype_name):
+    np.testing.assert_allclose(got_t.float().numpy(),
+                               np.asarray(want_j, np.float32),
+                               **_tol(dtype_name))
+
+
+def _rolling_cache(rng, B, T):
+    """kv positions of a rolling buffer: row b holds its last n_b tokens at
+    slots pos % T (unordered once it wraps), empty slots are -1; one row
+    is empty and one query sits before some of its row's keys."""
+    kv_pos = np.full((B, T), -1, np.int32)
+    q_pos = np.zeros(B, np.int32)
+    for b in range(B):
+        n = 0 if b == 0 else int(rng.integers(1, 2 * T))
+        pos = np.arange(max(0, n - T), n, dtype=np.int32)
+        kv_pos[b, pos % T] = pos
+        q_pos[b] = n - 1 if b != 1 else max(n - 3, 0)
+    return q_pos, kv_pos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("window", [None, 8])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D", [
+    (2, 64, 64, 4, 2, 16),       # GQA
+    (1, 40, 72, 6, 3, 32),       # ragged
+])
+def test_flash_attention_plain_matches_reference(jax_ref, B, S, T, Hq, Hkv, D,
+                                                 window, softcap, dtype):
+    jr, jnp = jax_ref, jax_ref.jnp
+    rng = np.random.default_rng(S * T + Hq)
+    q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    qp = np.broadcast_to(np.arange(T - S, T, dtype=np.int32), (B, S)).copy()
+    kp = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
+    (qj, qt), (kj, kt), (vj, vt) = (_both(jr, x, dtype) for x in (q, k, v))
+    got = t_ops.flash_attention(qt, kt, vt, torch.from_numpy(qp),
+                                torch.from_numpy(kp), window=window,
+                                softcap=softcap)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    want_kernel = jr.ops.flash_attention(qj, kj, vj, jnp.asarray(qp),
+                                        jnp.asarray(kp), True, window,
+                                        softcap)
+    _close(got, want_kernel, dtype)
+    want_oracle = jr.ref.flash_attention(qj, kj, vj, jnp.asarray(qp),
+                                        jnp.asarray(kp), window=window,
+                                        softcap=softcap)
+    _close(got, want_oracle, dtype)
+
+
+def test_flash_attention_fully_masked_rows_are_zero(jax_ref):
+    jnp = jax_ref.jnp
+    rng = np.random.default_rng(1)
+    B, S, H, D = 1, 8, 2, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)) for _ in range(3))
+    pos = torch.arange(S, dtype=torch.int32)[None]
+    kp = torch.full((B, S), -1, dtype=torch.int32)
+    kp[0, 5:] = pos[0, 5:]                  # queries 0..4 see nothing
+    out = t_ops.flash_attention(q, k, v, pos, kp)
+    want = jax_ref.ref.flash_attention(jnp.asarray(q.numpy()),
+                                 jnp.asarray(k.numpy()),
+                                 jnp.asarray(v.numpy()),
+                                 jnp.asarray(pos.numpy()),
+                                 jnp.asarray(kp.numpy()))
+    assert torch.count_nonzero(out[0, :5]) == 0
+    _close(out, want, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (24, 30.0)])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2)])     # G = 1, 2
+def test_decode_attention_plain_matches_reference(jax_ref, Hq, Hkv, window,
+                                                  softcap, dtype):
+    jr, jnp = jax_ref, jax_ref.jnp
+    rng = np.random.default_rng(10 * Hq + Hkv)
+    B, T, D = 4, 48, 16
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    qp, kp = _rolling_cache(rng, B, T)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(jr, x, dtype) for x in (q, k, v))
+    got = t_ops.decode_attention(qt, kt, vt, torch.from_numpy(qp),
+                                 torch.from_numpy(kp), window=window,
+                                 softcap=softcap)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    assert torch.count_nonzero(got[0]) == 0          # the empty row
+    want_kernel = jr.ops.decode_attention(qj, kj, vj, jnp.asarray(qp),
+                                         jnp.asarray(kp), window, softcap)
+    _close(got, want_kernel, dtype)
+    want_oracle = jr.ref.decode_attention(qj, kj, vj, jnp.asarray(qp),
+                                         jnp.asarray(kp), window=window,
+                                         softcap=softcap)
+    _close(got, want_oracle, dtype)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 2, 16)).astype(np.float32))
+    pos = torch.arange(4, dtype=torch.int32)[None]
+    t_ops.reset_launches()
+    t_ops.flash_attention(q, q, q, pos, pos)
+    t_ops.decode_attention(q[:, 0], q, q, pos[:, -1], pos)
+    assert t_ops.launches == {"flash_attention": 0, "flash_attention_plain": 1,
+                              "decode_attention": 0,
+                              "decode_attention_plain": 1}
+    t_ops.reset_launches()
+    assert set(t_ops.launches.values()) == {0}
+
+
+def test_flash_attention_backward_recomputes_through_plain():
+    """The autograd.Function's backward equals differentiating the plain
+    version (the reference's custom_vjp contract)."""
+    rng = np.random.default_rng(3)
+    B, S, Hq, Hkv, D = 1, 16, 4, 2, 8
+    xs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    pos = torch.arange(S, dtype=torch.int32)[None]
+    a = [x.clone().requires_grad_() for x in xs]
+    b = [x.clone().requires_grad_() for x in xs]
+    t_ops.flash_attention(*a, pos, pos, window=5).square().sum().backward()
+    t_ref.flash_attention(*b, pos, pos, window=5).square().sum().backward()
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad, y.grad, atol=2e-5, rtol=2e-4)
+
+
+# ---------------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels compile and run only "
+                    "there (chip_smoke.py runs the same check)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,window,softcap", [
+    (4, 512, 512, 32, 32, 64, None, None),
+    (2, 200, 200, 32, 32, 64, None, None),
+    (2, 512, 512, 32, 32, 64, 128, None),
+    (2, 512, 512, 32, 32, 64, None, 30.0),
+    (2, 512, 512, 32, 8, 64, None, None),
+    (1, 40, 72, 6, 3, 32, 8, 30.0),
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, S, T, Hq, Hkv, D,
+                                              window, softcap, dtype):
+    td = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(td)
+               for s in ((B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)))
+    kp = torch.arange(T, dtype=torch.int32, device=cuda)[None].expand(
+        B, T).contiguous()
+    qp = kp[:, T - S:].contiguous()
+    t_ops.reset_launches()
+    got = t_ops.flash_attention(q, k, v, qp, kp, window=window,
+                                softcap=softcap)
+    torch.cuda.synchronize()
+    assert t_ops.launches["flash_attention"] == 1
+    want = t_ref.flash_attention(q, k, v, qp, kp, window=window,
+                                 softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,Hq,Hkv,D", [
+    (16, 1024, 32, 32, 64), (16, 1024, 32, 8, 64), (4, 48, 4, 2, 16)])
+def test_decode_attention_kernel_matches_plain(cuda, B, T, Hq, Hkv, D, dtype):
+    td = DTYPES[dtype]
+    rng = np.random.default_rng(B + T)
+    qp, kp = _rolling_cache(rng, B, T)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(td)
+               for s in ((B, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)))
+    qp, kp = torch.from_numpy(qp).to(cuda), torch.from_numpy(kp).to(cuda)
+    t_ops.reset_launches()
+    got = t_ops.decode_attention(q, k, v, qp, kp)
+    torch.cuda.synchronize()
+    assert t_ops.launches["decode_attention"] == 1
+    want = t_ref.decode_attention(q, k, v, qp, kp)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
