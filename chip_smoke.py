@@ -11,19 +11,32 @@ Phases, each raising on failure (the script then exits non-zero):
 3. parity on the card: each kernel against its plain PyTorch version, in
    bfloat16 (2e-2) and float32 (2e-5 abs / 2e-4 rel), at the main path's
    shapes and at ragged, windowed, soft-capped and grouped-query ones;
+   the paged kernel K3 over shuffled pages, and bitwise against K2 on the
+   gathered view;
 4. the smoke model served on the card against the same model on the CPU
    through the plain attention versions (greedy ids must match);
-5. the main path: full-width stablelm-1.6b (bf16, seeded random weights
-   drawn on the card) served by ``repro_torch.platform.Continuum`` over a
-   2-tier edge -> cloud continuum (edge 2 slots, cloud 16, max_len 1024,
-   policy auto), ~48 requests with prompts of 64..512 tokens and 32 new
-   tokens each, ramped over the rounds, then drained.  Fails unless every
-   request is served with 32 tokens, both kernels' launch counts are > 0
-   and the plain versions' are 0;
+5. the dense main path: full-width stablelm-1.6b (bf16, seeded random
+   weights drawn on the card) served by ``repro_torch.platform.Continuum``
+   over a 2-tier edge -> cloud continuum (edge 2 slots, cloud 16,
+   max_len 1024, policy auto), 49 requests with prompts of 64..512 tokens
+   and 32 new tokens each, ramped over the rounds, then drained.  Fails
+   unless every request is served with 32 tokens, K1's and K2's launch
+   counts are > 0 and the plain versions' are 0;
+5b. paged == dense: a dense and a paged endpoint (page 16, no prefix
+   cache) over the same weights, 16 slots, driven through one fixed
+   admit / decode / retire schedule of 24 requests; the token ids must
+   agree at every step;
+5c. the paged main path: the continuum over two paged tiers (edge 8 slots
+   in 128 pages = the KV bytes of 2 dense rows, cloud 16 slots in 1024
+   pages), 48 requests, three in four drawn by Zipf(1.1) popularity from
+   4 function prompts (prefix hits, copy-on-write forks).  Fails unless
+   every request is served with 32 tokens, K3 (and K1) launched and no
+   plain version did, some tier hit its prefix registry, and every pool
+   drains balanced, holding only registry-pinned pages;
 6. timing of each kernel at the server's shapes (median over CUDA events,
-   L2 flushed between launches) beside its bound, its plain version and
-   ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick
-   (the port never calls it), printed as one ``{"kernels": [...]}`` line.
+   L2 flushed between launches) beside its bound, its plain version and a
+   yardstick of PyTorch library calls (the port never calls them), printed
+   as one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the package beside this script, it prints no result and exits
@@ -195,6 +208,91 @@ def parity() -> None:
                 f"max_abs_err={err:.3e} ok")
 
 
+def paged_inputs(B, ppr, page, Hq, Hkv, D, dtype, gen, fill=None):
+    """q, a paged pool and its tables in the engine's layout: row b holds
+    its last ``n_b`` tokens at slots pos % W (W = ppr*page; a wrapped row
+    uses every page), its pages drawn from a random permutation of the
+    pool (no row's pages are contiguous), short rows padded with the null
+    page P (pos -1).  Without ``fill`` row 0 is empty and the rest are
+    random; with it row b holds ``fill[b]`` tokens."""
+    import torch
+    W = ppr * page
+    cpu = torch.Generator().manual_seed(int(torch.randint(
+        0, 2**31 - 1, (1,), generator=gen, device="cuda").item()))
+    if fill is None:
+        ns = [0] + [int(torch.randint(1, 2 * W, (1,), generator=cpu))
+                    for _ in range(B - 1)]
+    else:
+        ns = [int(n) for n in fill]
+    used = [ppr if n > W else -(-n // page) for n in ns]
+    P = sum(used) + 7                      # a few pages no table uses
+    perm = torch.randperm(P, generator=cpu).tolist()
+    tables = torch.full((B, ppr), P, dtype=torch.int32)
+    kvp = torch.full((P + 1, page), -1, dtype=torch.int32)
+    qp = torch.zeros(B, dtype=torch.int32)
+    for b, (n, u) in enumerate(zip(ns, used)):
+        tables[b, :u] = torch.tensor(perm[:u], dtype=torch.int32)
+        perm = perm[u:]
+        pos = torch.arange(max(0, n - W), n, dtype=torch.int32)
+        slot = pos.long() % W
+        kvp[tables[b, slot // page].long(), slot % page] = pos
+        qp[b] = n - 1 if fill is not None else max(
+            n - 1 - int(torch.randint(0, 3, (1,), generator=cpu)), 0)
+    q = _rand((B, Hq, D), dtype, gen)
+    k = _rand((P + 1, page, Hkv, D), dtype, gen)
+    v = _rand((P + 1, page, Hkv, D), dtype, gen)
+    return q, k, v, tables.cuda(), qp.cuda(), kvp.cuda()
+
+
+def gathered(k_pages, v_pages, tables, kv_pos_pages):
+    """The contiguous (B, ppr*page, ...) view a page table describes."""
+    B, ppr = tables.shape
+    page = k_pages.shape[1]
+    idx = tables.long()
+    return (k_pages[idx].reshape(B, ppr * page, *k_pages.shape[2:]),
+            v_pages[idx].reshape(B, ppr * page, *v_pages.shape[2:]),
+            kv_pos_pages[idx].reshape(B, ppr * page))
+
+
+def parity_paged() -> None:
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k3 = [  # (label, B, ppr, page, Hq, Hkv, D, window, softcap)
+        ("main", 16, 64, 16, 32, 32, 64, None, None),
+        ("gqa4", 16, 64, 16, 32, 8, 64, None, None),
+        ("ragged", 5, 7, 16, 12, 4, 64, None, None),
+        ("window", 8, 32, 16, 8, 8, 64, 100, None),
+        ("softcap", 8, 32, 16, 8, 8, 64, None, 30.0),
+        ("page8-d16", 4, 12, 8, 4, 2, 16, 37, 20.0),
+        ("page32-d128", 4, 8, 32, 8, 2, 128, None, None),
+    ]
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        for label, B, ppr, page, Hq, Hkv, D, win, cap in k3:
+            q, k, v, tab, qp, kvp = paged_inputs(B, ppr, page, Hq, Hkv, D,
+                                                 dt, gen)
+            got = ops.paged_decode_attention(q, k, v, tab, qp, kvp,
+                                             window=win, softcap=cap)
+            torch.cuda.synchronize()
+            want = ref.paged_decode_attention(q, k, v, tab, qp, kvp,
+                                              window=win, softcap=cap)
+            err = check_close(f"K3 {label} {dname}", got, want, dname)
+            if got[0].abs().max().item() != 0.0:
+                raise RuntimeError(f"K3 {label} {dname}: the empty row is "
+                                   f"not zero")
+            kd, vd, kpd = gathered(k, v, tab, kvp)
+            dense = ops.decode_attention(q, kd.contiguous(), vd.contiguous(),
+                                         qp, kpd.contiguous(), window=win,
+                                         softcap=cap)
+            if not torch.equal(got, dense):
+                raise RuntimeError(f"K3 {label} {dname}: not bitwise equal "
+                                   f"to K2 on the gathered view")
+            log(f"[parity] K3 paged_decode_attention {label:11s} {dname:8s} "
+                f"B={B} ppr={ppr} page={page} Hq={Hq} Hkv={Hkv} D={D} "
+                f"max_abs_err={err:.3e} ok, == K2 on the gathered view")
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -236,24 +334,18 @@ def smoke_model_vs_cpu() -> None:
 # ---------------------------------------------------------------- phase 5
 
 
-def serve_full(shapes: dict) -> dict:
+def serve_full(cfg, params, shapes: dict) -> dict:
     import numpy as np
     import torch
-    from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import model_zoo
     from repro_torch.platform import (AutoscalingPolicy, Continuum,
                                       FunctionSpec, Request, TierConfig)
-    cfg = configs.get_config("stablelm-1.6b")
-    t0 = time.perf_counter()
-    params = model_zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
     nparams = sum(p.numel() for p in params.values())
     log(f"[serve] stablelm-1.6b full width: {cfg.num_layers} layers, "
         f"d={cfg.d_model}, heads={cfg.num_heads}/{cfg.num_kv_heads}, "
         f"head_dim={cfg.head_dim}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}, "
-        f"{nparams / 1e9:.3f}B params bf16, init "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"{nparams / 1e9:.3f}B params bf16")
     max_len, max_new = 1024, 32
     cc = Continuum(edge=TierConfig(slots=2, max_len=max_len),
                    cloud=TierConfig(slots=16, max_len=max_len,
@@ -354,6 +446,187 @@ def serve_full(shapes: dict) -> dict:
     return launches
 
 
+def full_model():
+    """stablelm-1.6b at full width, bf16, seeded random weights drawn on
+    the card."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+    cfg = configs.get_config("stablelm-1.6b")
+    params = model_zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return cfg, params
+
+
+def paged_vs_dense(cfg, params, card: str) -> None:
+    """Phase 5b: a dense and a paged endpoint (page 16, no prefix cache)
+    over one set of weights, driven through one fixed admit / decode /
+    retire schedule; the token ids must agree at every step."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import Endpoint
+    slots, max_len, max_new, n_req = 16, 1024, 32, 24
+    dense = Endpoint(cfg, params, slots=slots, max_len=max_len,
+                     device="cuda")
+    paged = Endpoint(cfg, params, slots=slots, max_len=max_len,
+                     device="cuda", paged=True, page_size=16,
+                     prefix_cache=False)
+    rng = np.random.default_rng(5)
+    waiting = [rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32)
+               for L in rng.integers(64, 513, n_req)]
+    cur, left = {}, {}
+    times = {"dense": [], "paged": []}
+    steps = tokens = 0
+    while waiting or cur:
+        # admit up to 4 waiting requests a step into free slots
+        batch = {}
+        while waiting and len(batch) < 4 and dense.active < slots:
+            toks = waiting.pop(0)
+            sd = dense.try_claim(tokens=toks, max_new=max_new)
+            sp = paged.try_claim(tokens=toks, max_new=max_new)
+            if sd != sp or sd is None:
+                raise RuntimeError(f"claims diverged: dense {sd} paged {sp}")
+            batch[sd] = toks
+        if batch:
+            fd = dense.prefill_batch(batch)
+            fp = paged.prefill_batch(batch)
+            if fd != fp:
+                raise RuntimeError(f"first tokens differ: {fd} vs {fp}")
+            for s, t in fd.items():
+                cur[s], left[s] = t, max_new - 1
+                tokens += 1
+        if not cur:
+            continue
+        for name, ep in (("dense", dense), ("paged", paged)):
+            t0 = time.perf_counter()
+            out = ep.decode_all(dict(cur))
+            times[name].append(time.perf_counter() - t0)
+            if name == "dense":
+                nd = out
+            elif out != nd:
+                raise RuntimeError(f"step {steps}: paged tokens {out} != "
+                                   f"dense {nd}")
+        steps += 1
+        for s in list(cur):
+            cur[s], left[s] = nd[s], left[s] - 1
+            tokens += 1
+            if left[s] <= 0:
+                dense.release(s)
+                paged.release(s)
+                del cur[s], left[s]
+    if not paged.pool.check_balanced() or paged.free_pages != \
+            paged.total_pages:
+        raise RuntimeError("paged pool not balanced after the schedule")
+    log(f"[paged==dense] {n_req} requests, {steps} decode steps, {tokens} "
+        f"tokens: paged token ids == dense at every step")
+    log(f"[paged==dense] median decode_all wall, 16 slots: dense "
+        f"{1e3 * statistics.median(times['dense']):.3f} ms, paged "
+        f"{1e3 * statistics.median(times['paged']):.3f} ms ({card})")
+
+
+def serve_paged(cfg, params, shapes: dict) -> dict:
+    """Phase 5c: the paged main path, the continuum over two paged tiers
+    serving function-prompt traffic."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as _dec
+    from repro_torch.kernels import ops
+    from repro_torch.platform import (AutoscalingPolicy, Continuum,
+                                      FunctionSpec, LinkSpec, Request,
+                                      TierSpec, Topology)
+    max_len, max_new = 1024, 32
+    topo = Topology(
+        (TierSpec("edge", slots=8, max_len=max_len, page_size=16,
+                  pool_pages=128),
+         TierSpec("cloud", slots=16, max_len=max_len, page_size=16,
+                  extra_latency_s=0.02, queue_depth_per_slot=None)),
+        (LinkSpec(rtt_s=0.0),), waterfall=False)
+    cc = Continuum(topology=topo, policy="auto", seed=0, device="cuda")
+    cc.deploy(FunctionSpec(name="stablelm", arch="stablelm-1.6b",
+                           autoscaling=AutoscalingPolicy()), cfg, params)
+    for t in cc.tiers:
+        ep = t.endpoints["stablelm"]
+        log(f"[paged] tier {t.name}: {ep.slots} slots, {ep.total_pages} "
+            f"pages of {ep.page_size} tokens, pool "
+            f"{ep.pool_nbytes / 2**20:.1f} MiB")
+    rng = np.random.default_rng(7)
+    fn_prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+                  for L in (100, 237, 330, 509)]
+    zipf = 1.0 / np.arange(1, 5) ** 1.1
+    zipf /= zipf.sum()
+    per_round = (2, 3, 4, 5, 6, 8, 10, 10)              # 48 requests
+    paged_launch = _dec.paged_decode_attention
+
+    def rec(q, k_pages, v_pages, page_tables, *a, **kw):
+        key = (tuple(q.shape), tuple(k_pages.shape), tuple(page_tables.shape))
+        shapes.setdefault("K3", {}).setdefault(key, 0)
+        shapes["K3"][key] += 1
+        return paged_launch(q, k_pages, v_pages, page_tables, *a, **kw)
+
+    reqs = []
+    ops.reset_launches()
+    _dec.paged_decode_attention = rec
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter()
+    try:
+        for rnd, n in enumerate(per_round):
+            for _ in range(n):
+                if rng.uniform() < 0.75:
+                    toks = fn_prompts[int(rng.choice(4, p=zipf))].copy()
+                else:
+                    toks = rng.integers(0, cfg.vocab_size, int(
+                        rng.integers(64, 513))).astype(np.int32)
+                req = Request(rid=len(reqs), tokens=toks, max_new=max_new)
+                reqs.append(req)
+                if not cc.submit("stablelm", req):
+                    raise RuntimeError(f"request {req.rid} rejected")
+            r = cc.tick()
+            log(f"[paged] round={rnd} submitted={n} "
+                f"edge={r['tiers']['edge']} cloud={r['tiers']['cloud']} "
+                f"steps={r['steps']} R_t={r['R']:.1f}%")
+        drained = cc.drain()
+        torch.cuda.synchronize()
+    finally:
+        _dec.paged_decode_attention = paged_launch
+    secs = time.perf_counter() - t_serve
+    launches = dict(ops.launches)
+    served = {t.name: sum(r["tiers"][t.name] for r in cc.log)
+              for t in cc.tiers}
+    if sum(served.values()) != len(reqs) or any(r.failed for r in reqs):
+        raise RuntimeError(f"paged: served {served} of {len(reqs)}")
+    for r in reqs:
+        if (r.output is None or r.output.shape != (max_new,)
+                or r.output.min() < 0 or r.output.max() >= cfg.vocab_size):
+            raise RuntimeError(f"paged request {r.rid}: bad output "
+                               f"{r.output}")
+    if launches["paged_decode_attention"] <= 0 or \
+            launches["flash_attention"] <= 0:
+        raise RuntimeError(f"paged path skipped a kernel: {launches}")
+    if any(launches[k] for k in launches if k.endswith("_plain")) or \
+            launches["decode_attention"]:
+        raise RuntimeError(f"paged path ran another attention: {launches}")
+    eps = {t.name: t.endpoints["stablelm"] for t in cc.tiers}
+    if not any(ep.prefill_hit_rate > 0 for ep in eps.values()):
+        raise RuntimeError("paged: no prefix hit on any tier")
+    for name, ep in eps.items():
+        if (not ep.pool.check_balanced() or ep.active
+                or ep.used_pages != len(ep.prefix.pinned_pages())):
+            raise RuntimeError(f"paged tier {name}: pool not drained to "
+                               f"its registry")
+        log(f"[paged] tier {name}: served {served[name]}, prefill hit rate "
+            f"{ep.prefill_hit_rate:.4f}, peak resident requests "
+            f"{ep.peak_active}, registry {len(ep.prefix)} prompts in "
+            f"{ep.used_pages} pages")
+    tokens = len(reqs) * max_new
+    log(f"[paged] served {len(reqs)}/{len(reqs)} drain_ticks={drained} "
+        f"tokens={tokens} wall={secs:.2f}s "
+        f"tokens_per_s={tokens / secs:.1f} final_R_t={cc.log[-1]['R']:.2f}% "
+        f"launches={launches}")
+    log(f"[paged] K3 shapes (q, pool, tables) -> launches: "
+        f"{ {str(k): v for k, v in sorted(shapes['K3'].items())} }")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -448,10 +721,63 @@ def timing(shapes: dict, launches: dict) -> list:
         "library_ms": lib,
         "shape": f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 "
                  f"live_slots={valid}"})
+
+    # K3 at the paged cloud tier's decode batch: the same live slots as
+    # K2's row (same fill), pages shuffled over a pool with spare pages
+    (qs, ks, ts) = max(shapes["K3"], key=lambda s: (s[0][0],
+                                                    shapes["K3"][s]))
+    B, Hq, D = qs
+    page, Hkv, ppr = ks[1], ks[2], ts[1]
+    q, kpg, vpg, tab, qp, kvp = paged_inputs(B, ppr, page, Hq, Hkv, D,
+                                             torch.bfloat16, gen, fill=fill)
+    got = ops.paged_decode_attention(q, kpg, vpg, tab, qp, kvp)
+    want = ref.paged_decode_attention(q, kpg, vpg, tab, qp, kvp)
+    err = check_close("K3 timing inputs", got, want, "bfloat16")
+    kd, vd, kpd = gathered(kpg, vpg, tab, kvp)
+    if not torch.equal(got, ops.decode_attention(q, kd.contiguous(),
+                                                 vd.contiguous(), qp,
+                                                 kpd.contiguous())):
+        raise RuntimeError("K3 timing inputs: not bitwise equal to K2")
+    flat = tab.reshape(-1).long()
+    mask = ((kpd >= 0) & (kpd <= qp[:, None]))[:, None, None, :]
+    qh = q[:, :, None].contiguous()
+
+    def gather_sdpa():
+        # two page gathers and one SDPA: no single PyTorch call computes
+        # attention through a page table
+        kg = kpg.index_select(0, flat).view(B, ppr * page, Hkv, D)
+        vg = vpg.index_select(0, flat).view(B, ppr * page, Hkv, D)
+        return F.scaled_dot_product_attention(
+            qh, kg.transpose(1, 2), vg.transpose(1, 2), attn_mask=mask,
+            **({"enable_gqa": True} if Hq != Hkv else {}))
+
+    lib_out = gather_sdpa()[:, :, 0]
+    check_close("K3 yardstick", lib_out, want, "bfloat16")
+    ms = _time_ms(lambda: ops.paged_decode_attention(q, kpg, vpg, tab, qp,
+                                                     kvp), flush)
+    plain = _time_ms(lambda: ref.paged_decode_attention(q, kpg, vpg, tab,
+                                                        qp, kvp), flush)
+    lib = _time_ms(gather_sdpa, flush)
+    valid = int(((kpd >= 0) & (kpd <= qp[:, None])).sum().item())
+    nbytes = (q.numel() + got.numel()) * 2 + valid * Hkv * D * 2 * 2 \
+        + (qp.numel() + kpd.numel() + tab.numel()) * 4
+    flops = 4.0 * valid * Hq * D
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    rows.append({
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:132",
+        "launches": launches["paged_decode_attention"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib,
+        "library": "2x index_select + scaled_dot_product_attention",
+        "shape": f"B={B} ppr={ppr} page={page} Hq={Hq} Hkv={Hkv} D={D} "
+                 f"bf16 live_slots={valid} pool_pages={kpg.shape[0]}"})
     for r in rows:
         log(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms")
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
     return rows
 
 
@@ -478,9 +804,14 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     log(f"[build] kernels built in {build_kernels():.1f}s")
     parity()
+    parity_paged()
     smoke_model_vs_cpu()
+    cfg, params = full_model()
     shapes: dict = {}
-    launches = serve_full(shapes)
+    launches = serve_full(cfg, params, shapes)
+    paged_vs_dense(cfg, params, card)
+    launches.update({k: v for k, v in serve_paged(cfg, params, shapes).items()
+                     if k.startswith("paged_")})
     rows = timing(shapes, launches)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)

@@ -7,8 +7,10 @@ the chain.  The historical two-tier API is :meth:`Topology.pair`, with
 waterfall disabled so a full edge queue rejects (503) as in the seed
 semantics.
 
-Not ported yet (ROADMAP.md): the cost-modeled tiers (``model=``, the
-hardware cost table) and paged tiers (``page_size=``) raise
+``page_size`` switches a tier's endpoints to the paged KV pool
+(``pool_pages`` pages of ``page_size`` tokens, default ``slots`` full
+rows), with the reference's validation.  Not ported yet (ROADMAP.md):
+the cost-modeled tiers (``model=``, the hardware cost table) raise
 ``NotImplementedError``; the simulator-only fields are absent.
 """
 
@@ -25,7 +27,9 @@ class TierSpec:
     """One serving location in the chain: concurrent ``slots`` of
     ``max_len`` context, a synthetic per-request overhead, KPA bounds and
     a bounded gateway backlog of ``slots * queue_depth_per_slot``
-    (``None`` = unbounded, the elastic cloud)."""
+    (``None`` = unbounded, the elastic cloud).  ``page_size`` (which must
+    divide ``max_len``) makes the KV pool paged, of ``pool_pages`` pages
+    (at least one full row; default ``slots`` full rows)."""
 
     name: str
     slots: int = 4
@@ -37,8 +41,10 @@ class TierSpec:
     stable_window_s: float = 60.0
     panic_window_s: float = 6.0
     queue_depth_per_slot: Optional[int] = 8
-    # not ported yet: asking for either raises
+    # paged KV pool (None = dense per-slot rows)
     page_size: Optional[int] = None
+    pool_pages: Optional[int] = None
+    # not ported yet: asking for it raises
     model: Optional[str] = None
 
     def __post_init__(self):
@@ -47,9 +53,30 @@ class TierSpec:
                 f"tier {self.name!r}: cost-modeled tiers (model=...) need "
                 f"the H100 cost table, not ported yet (ROADMAP.md)")
         if self.page_size is not None:
-            raise NotImplementedError(
-                f"tier {self.name!r}: paged KV pools (page_size=...) are "
-                f"not ported yet (ROADMAP.md, paged KV with kernel K3)")
+            if self.page_size <= 0 or self.max_len % self.page_size:
+                raise ValueError(
+                    f"page_size must divide max_len ({self.max_len}), "
+                    f"got {self.page_size}")
+            ppr = self.max_len // self.page_size
+            if self.pool_pages is not None and self.pool_pages < ppr:
+                raise ValueError(
+                    f"pool_pages={self.pool_pages} cannot hold one full "
+                    f"row ({ppr} pages)")
+        elif self.pool_pages is not None:
+            raise ValueError("pool_pages requires page_size")
+
+    @property
+    def pages_per_row(self) -> int:
+        return 0 if self.page_size is None else self.max_len // self.page_size
+
+    @property
+    def total_pages(self) -> int:
+        """Usable pool pages (0 for dense tiers)."""
+        if self.page_size is None:
+            return 0
+        if self.pool_pages is not None:
+            return self.pool_pages
+        return self.slots * self.pages_per_row
 
 
 @dataclasses.dataclass(frozen=True)

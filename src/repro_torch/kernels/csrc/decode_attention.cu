@@ -1,8 +1,11 @@
 // K2 — flash-decode: one query token per row against a rolling KV cache,
-// sm_90a.
+// and K3 — the same against a paged KV pool, sm_90a.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py:189
+// K2 replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py:189
 // (`decode_attention`, body `_kernel` at :34, `pl.pallas_call` at :214).
+// K3 replaces src/repro/kernels/decode_attention.py:132
+// (`paged_decode_attention`, body `_paged_kernel` at :77, `pl.pallas_call`
+// at :176).
 //
 // What it computes: out[b, h*G+g, :] = softmax over cache slots t of
 // mask(cap(q.k_t * D^-1/2)) . v_t for the G query heads of kv head h,
@@ -12,9 +15,25 @@
 // accumulator and the guards `alive = m_new > NEG_INF/2`,
 // `den = max(l, 1e-30)`.
 //
-// Bound on an H100: decode is memory-bound.  Each call reads the cache,
-// B*T*Hkv*D*2 values, once and does about 4 flops per value, far below
-// the 295 flop/byte ridge, so the floor is bytes / 3.35 TB/s.
+// One body, two addressing policies.  Only where slot t of row b lives
+// depends on the layout (`Rows::slot`):
+//   dense (K2): k/v (B, T, Hkv, D), kv_pos (B, T); slot = b*T + t;
+//   paged (K3): k/v pages (P+1, page, Hkv, D), kv_pos_pages (P+1, page),
+//     page_tables (B, ppr); T = ppr*page, pg = page_tables[b, t/page],
+//     slot = pg*page + t%page.  A short row's table is padded with a null
+//     page whose positions are all -1, so its slots are masked like the
+//     empty slots of a dense row.
+// Everything else (which row group takes which slot, the skip of a masked
+// slot, the trip count, the merge) is shared, so K3 on a pool does the
+// same float operations in the same order as K2 on the gathered
+// contiguous view: the two are bitwise equal, as the TPU kernels are.
+// Page ids are not checked on the device: the engine keeps every table
+// entry in [0, P].
+//
+// Bound on an H100: decode is memory-bound.  Each call reads the live
+// slots' K and V (2*Hkv*D values per slot) once, plus q, the positions
+// and (K3) the page table, and does about 4 flops per value, far below
+// the 295 flop/byte ridge, so the floor is those bytes / 3.35 TB/s.
 //
 // Design: one block per (b, kv head, chunk of up to 8 query heads), so a
 // cache row is read once for all the query heads that share it (MHA,
@@ -25,9 +44,11 @@
 // at once, coalesced); the row's dot product is reduced with warp
 // shuffles and every row group keeps its own online-softmax state in
 // registers.  A slot that fails the mask is not read at all, so empty
-// and future slots of the rolling cache cost no bandwidth.  The row
-// groups' partial states are merged through shared memory at the end.
-// Split-K over T (more blocks for small B) is later work.
+// and future slots of the rolling cache (and null pages) cost no
+// bandwidth.  The row groups' partial states are merged through shared
+// memory at the end.  With bf16 and D = 64 one loop iteration covers 16
+// slots: one page at page_size 16.  Later work: split-K over T (more
+// blocks for small B) and, for K3, TMA loads of whole pages.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,9 +66,11 @@ struct Params {
   const void* k;
   const void* v;
   const int* q_pos;
-  const int* kv_pos;
+  const int* kv_pos;      // (B, T) dense; (P+1, page) paged
+  const int* page_table;  // (B, ppr), paged only
   void* out;
   int B, T, Hq, Hkv;
+  int ppr, page;          // paged only: T = ppr * page
   int window;     // < 0: no window
   float softcap;  // <= 0: no softcap
   float scale;
@@ -89,7 +112,24 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-template <typename T, int D, int GC>
+// Where slot t of row b lives: the flat slot index into kv_pos, and
+// (times Hkv*D) into k/v.
+struct DenseRows {
+  __device__ __forceinline__ static size_t slot(const Params& p, int b,
+                                                int t) {
+    return (size_t)b * p.T + t;
+  }
+};
+
+struct PagedRows {
+  __device__ __forceinline__ static size_t slot(const Params& p, int b,
+                                                int t) {
+    const int pg = p.page_table[(size_t)b * p.ppr + t / p.page];
+    return (size_t)pg * p.page + t % p.page;
+  }
+};
+
+template <typename T, int D, int GC, typename Rows>
 __global__ void __launch_bounds__(kWarps * 32) decode_fwd(Params p) {
   constexpr int VEC = Vec<T>::N;
   constexpr int TPR = D / VEC;         // threads per cache row
@@ -142,14 +182,16 @@ __global__ void __launch_bounds__(kWarps * 32) decode_fwd(Params p) {
   for (int base = 0; base < p.T; base += NGRP) {
     const int t = base + grp;
     bool ok = false;
+    size_t slot = 0;
     if (t < p.T) {
-      const int kp = p.kv_pos[(size_t)b * p.T + t];
+      slot = Rows::slot(p, b, t);
+      const int kp = p.kv_pos[slot];
       const int d = qp - kp;
       ok = kp >= 0 && d >= 0 && (p.window < 0 || d < p.window);
     }
     float kf[VEC], vf[VEC];
     if (ok) {
-      const size_t off = ((size_t)(b * p.T + t) * p.Hkv + hk) * D + sub * VEC;
+      const size_t off = (slot * p.Hkv + hk) * D + sub * VEC;
       Vec<T>::load(k + off, kf);
       Vec<T>::load(v + off, vf);
     } else {
@@ -211,7 +253,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_fwd(Params p) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Rows>
 int launch(const Params& p, cudaStream_t stream) {
   const int G = p.Hq / p.Hkv;
   int GC = 1;  // query heads per block: the next power of two >= G, <= 8
@@ -219,36 +261,44 @@ int launch(const Params& p, cudaStream_t stream) {
   const dim3 grid(p.Hkv * ((G + GC - 1) / GC), p.B);
   const int threads = kWarps * 32;
   switch (GC) {
-    case 1: decode_fwd<T, D, 1><<<grid, threads, 0, stream>>>(p); break;
-    case 2: decode_fwd<T, D, 2><<<grid, threads, 0, stream>>>(p); break;
-    case 4: decode_fwd<T, D, 4><<<grid, threads, 0, stream>>>(p); break;
-    default: decode_fwd<T, D, 8><<<grid, threads, 0, stream>>>(p); break;
+    case 1: decode_fwd<T, D, 1, Rows><<<grid, threads, 0, stream>>>(p); break;
+    case 2: decode_fwd<T, D, 2, Rows><<<grid, threads, 0, stream>>>(p); break;
+    case 4: decode_fwd<T, D, 4, Rows><<<grid, threads, 0, stream>>>(p); break;
+    default: decode_fwd<T, D, 8, Rows><<<grid, threads, 0, stream>>>(p); break;
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename Rows>
 int launch_dim(const Params& p, int D, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(p, stream);
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
+    case 16: return launch<T, 16, Rows>(p, stream);
+    case 32: return launch<T, 32, Rows>(p, stream);
+    case 64: return launch<T, 64, Rows>(p, stream);
+    case 128: return launch<T, 128, Rows>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <typename Rows>
+int launch_dtype(const Params& p, int D, int dtype, cudaStream_t stream) {
+  if (dtype == 0) return launch_dim<float, Rows>(p, D, stream);
+  if (dtype == 1) return launch_dim<__nv_bfloat16, Rows>(p, D, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success); the caller raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16.  Each entry point returns
+// cudaGetLastError() after the launch (0 on success); the caller raises on
+// anything else.
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* q_pos,
                                       const void* kv_pos, void* out, int B,
                                       int T, int Hq, int Hkv, int D,
                                       int dtype, int window, float softcap,
                                       float scale, void* stream) {
-  Params p;
+  Params p = {};
   p.q = q;
   p.k = k;
   p.v = v;
@@ -262,10 +312,34 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   p.window = window;
   p.softcap = softcap;
   p.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dim<float>(p, D, st);
-  if (dtype == 1) return launch_dim<__nv_bfloat16>(p, D, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_dtype<DenseRows>(p, D, dtype,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_paged_decode_attention(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* page_tables, const void* q_pos, const void* kv_pos_pages,
+    void* out, int B, int ppr, int page, int Hq, int Hkv, int D, int dtype,
+    int window, float softcap, float scale, void* stream) {
+  Params p = {};
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.q_pos = static_cast<const int*>(q_pos);
+  p.kv_pos = static_cast<const int*>(kv_pos_pages);
+  p.page_table = static_cast<const int*>(page_tables);
+  p.out = out;
+  p.B = B;
+  p.T = ppr * page;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.ppr = ppr;
+  p.page = page;
+  p.window = window;
+  p.softcap = softcap;
+  p.scale = scale;
+  return launch_dtype<PagedRows>(p, D, dtype,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -1,11 +1,14 @@
-"""Launcher of kernel K2 (``csrc/decode_attention.cu``): flash-decode of one
-query token per row against a rolling KV cache on a CUDA card.
+"""Launchers of kernels K2 and K3 (``csrc/decode_attention.cu``):
+flash-decode of one query token per row against a rolling KV cache (K2)
+or a paged KV pool read through page tables (K3), on a CUDA card.
 
-Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py:189``.
-The plain version of the same function is
-:func:`repro_torch.kernels.ref.decode_attention`; callers go through
-:func:`repro_torch.kernels.ops.decode_attention`, which picks this kernel
-for CUDA tensors.
+K2 replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py:189``
+and K3 ``repro/kernels/decode_attention.py:132``; both share one CUDA
+body.  The plain versions of the same functions are
+:func:`repro_torch.kernels.ref.decode_attention` and
+:func:`repro_torch.kernels.ref.paged_decode_attention`; callers go
+through :mod:`repro_torch.kernels.ops`, which picks these kernels for
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -22,13 +25,20 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _entry():
+def _entry(name: str, argtypes):
     lib = _build.load("decode_attention")
-    fn = lib.repro_decode_attention
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I] * 7 + [_F, _F, _P]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def _aligned(what: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: q/k/v must be 16-byte aligned for "
+                             f"the kernel's vector loads")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,19 +61,65 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"q_pos{tuple(q_pos.shape)} "
                          f"kv_pos{tuple(kv_pos.shape)}")
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: q/k/v must be 16-byte aligned for "
-                             f"the kernel's vector loads")
+    _aligned(what, q, k, v)
     win, cap = _checks.mask_args(what, window, softcap)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib, fn = _entry()
+    lib, fn = _entry("repro_decode_attention",
+                     [_P] * 6 + [_I] * 7 + [_F, _F, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
                  kv_pos.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, D, dtype,
                  win, cap, float(D ** -0.5), stream)
+    _build.check(lib, err, what)
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_tables: torch.Tensor,
+                           q_pos: torch.Tensor, kv_pos_pages: torch.Tensor,
+                           *, window: Optional[int] = None,
+                           softcap: Optional[float] = None) -> torch.Tensor:
+    """q: (B,Hq,D); k_pages/v_pages: (P+1,page,Hkv,D); page_tables (B,ppr)
+    int32; q_pos (B,), kv_pos_pages (P+1,page) int32, all contiguous on
+    one CUDA device.  Every page id must lie in [0, P] (not checked on
+    the device).  Returns (B,Hq,D) in q.dtype.  Launches on the current
+    stream and does not synchronise."""
+    what = "paged_decode_attention"
+    _checks.cuda_inputs(what, q, k_pages, v_pages, page_tables, q_pos,
+                        kv_pos_pages)
+    dtype = _checks.float_inputs(what, q, k_pages, v_pages)
+    _checks.positions(what, q_pos, kv_pos_pages)
+    if page_tables.dtype != torch.int32:
+        raise ValueError(f"{what}: page_tables must be int32, "
+                         f"got {page_tables.dtype}")
+    B, Hq, D = q.shape
+    P1, page, Hkv = k_pages.shape[:3]
+    _checks.heads(what, D, Hq, Hkv)
+    if (k_pages.shape != (P1, page, Hkv, D) or v_pages.shape != k_pages.shape
+            or page_tables.dim() != 2 or page_tables.shape[0] != B
+            or q_pos.shape != (B,) or kv_pos_pages.shape != (P1, page)):
+        raise ValueError(f"{what}: inconsistent shapes q{tuple(q.shape)} "
+                         f"k_pages{tuple(k_pages.shape)} "
+                         f"v_pages{tuple(v_pages.shape)} "
+                         f"page_tables{tuple(page_tables.shape)} "
+                         f"q_pos{tuple(q_pos.shape)} "
+                         f"kv_pos_pages{tuple(kv_pos_pages.shape)}")
+    ppr = page_tables.shape[1]
+    _aligned(what, q, k_pages, v_pages)
+    win, cap = _checks.mask_args(what, window, softcap)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib, fn = _entry("repro_paged_decode_attention",
+                     [_P] * 7 + [_I] * 8 + [_F, _F, _P])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 page_tables.data_ptr(), q_pos.data_ptr(),
+                 kv_pos_pages.data_ptr(), out.data_ptr(), B, ppr, page, Hq,
+                 Hkv, D, dtype, win, cap, float(D ** -0.5), stream)
     _build.check(lib, err, what)
     return out

@@ -1,9 +1,9 @@
 """Dispatch over the attention kernels, by the device of the tensors.
 
 The counterpart of ``repro/kernels/ops.py``.  A CUDA tensor always goes
-through the hand-written kernel (K1 ``flash_attention.cu``, K2
-``decode_attention.cu``); a CPU tensor goes through the plain PyTorch
-version in :mod:`repro_torch.kernels.ref`.  There is no switch and no
+through the hand-written kernel (K1 ``flash_attention.cu``; K2 and K3,
+dense and paged decode, ``decode_attention.cu``); a CPU tensor goes
+through the plain PyTorch version in :mod:`repro_torch.kernels.ref`.  There is no switch and no
 fallback: a kernel that cannot build or launch raises.
 
 ``launches`` counts, per kernel and per plain version, the calls that
@@ -28,6 +28,7 @@ from repro_torch.kernels import ref
 launches: Dict[str, int] = {
     "flash_attention": 0, "flash_attention_plain": 0,
     "decode_attention": 0, "decode_attention_plain": 0,
+    "paged_decode_attention": 0, "paged_decode_attention_plain": 0,
 }
 
 
@@ -97,3 +98,22 @@ def decode_attention(q, k, v, q_pos, kv_pos, window: Optional[int] = None,
     launches["decode_attention_plain"] += 1
     return ref.decode_attention(q, k, v, q_pos, kv_pos, window=window,
                                 softcap=softcap)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_tables, q_pos,
+                           kv_pos_pages, window: Optional[int] = None,
+                           softcap: Optional[float] = None) -> torch.Tensor:
+    """Decode straight off a paged KV pool, no gather.  q: (B,Hq,D);
+    k_pages/v_pages: (P+1,page,Hkv,D); page_tables (B,ppr) int32;
+    q_pos (B,); kv_pos_pages (P+1,page) int32.  Returns (B,Hq,D) in
+    q.dtype (inference only: no backward)."""
+    if _on_cuda(q, "paged_decode_attention"):
+        out = _dec.paged_decode_attention(q, k_pages, v_pages, page_tables,
+                                          q_pos, kv_pos_pages,
+                                          window=window, softcap=softcap)
+        launches["paged_decode_attention"] += 1
+        return out
+    launches["paged_decode_attention_plain"] += 1
+    return ref.paged_decode_attention(q, k_pages, v_pages, page_tables,
+                                      q_pos, kv_pos_pages, window=window,
+                                      softcap=softcap)

@@ -59,3 +59,22 @@ def decode_attention(q, k, v, q_pos, kv_pos, *,
     out = flash_attention(q[:, None], k, v, q_pos[:, None], kv_pos,
                           causal=True, window=window, softcap=softcap)
     return out[:, 0]
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_tables, q_pos,
+                           kv_pos_pages, *, window: Optional[int] = None,
+                           softcap: Optional[float] = None) -> torch.Tensor:
+    """Decode against a paged KV pool.  q: (B,Hq,D); k_pages/v_pages:
+    (P+1,page,Hkv,D); page_tables (B,ppr) int32 page ids (short rows
+    padded with a null page whose positions are all -1); q_pos (B,);
+    kv_pos_pages (P+1,page).  Gathers each row's pages into the
+    contiguous (B, ppr*page, Hkv, D) view and runs :func:`decode_attention`
+    on it.  Returns (B,Hq,D) in q.dtype."""
+    B, ppr = page_tables.shape
+    page, Hkv, D = k_pages.shape[1:]
+    idx = page_tables.long()
+    k = k_pages[idx].reshape(B, ppr * page, Hkv, D)
+    v = v_pages[idx].reshape(B, ppr * page, Hkv, D)
+    kv_pos = kv_pos_pages[idx].reshape(B, ppr * page)
+    return decode_attention(q, k, v, q_pos, kv_pos, window=window,
+                            softcap=softcap)

@@ -2,11 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile
     PYTHONPATH=src python -m repro_torch.launch.profile --slots 2
+    PYTHONPATH=src python -m repro_torch.launch.profile --page-size 16
 
 Builds the full-width stablelm-1.6b (bf16, random weights drawn on the
 card from seed 0), fills an :class:`~repro_torch.serving.engine.Endpoint`
 of ``--slots`` rows (the cloud tier's 16, or the edge's 2) with prompts of
-64..512 tokens in a 1024-token cache, then measures, after a warm-up:
+64..512 tokens in a 1024-token cache (a paged pool of ``--page-size``
+pages, no prefix cache, when given), then measures, after a warm-up:
 
 * the wall time of one bucketed prefill and of one ``decode_all`` step
   (host clock around work that ends in a synchronize, median of runs);
@@ -54,6 +56,8 @@ def _wall(fn, reps: int) -> float:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--slots", type=int, default=16)
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="profile a paged endpoint with pages of this size")
     args = ap.parse_args()
 
     dev = resolve("cuda")
@@ -61,7 +65,8 @@ def main():
     cfg = configs.get_config("stablelm-1.6b")
     params = model_zoo.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
     ep = Endpoint(cfg, params, slots=args.slots, max_len=MAX_LEN,
-                  device=dev)
+                  device=dev, paged=args.page_size is not None,
+                  page_size=args.page_size or 16, prefix_cache=False)
     rng = np.random.default_rng(SEED)
     prompts = {}
     for _ in range(args.slots):
@@ -118,6 +123,7 @@ def main():
         print(f"  {us / 1e3:9.3f} ms  {n:6d}x  {name[:100]}")
     print(json.dumps({
         "card": torch.cuda.get_device_name(0), "slots": args.slots,
+        "page_size": args.page_size,
         "max_len": MAX_LEN, "prefill_tokens": len(probe),
         "prefill_ms": prefill_s * 1e3, "decode_step_ms": decode_s * 1e3,
         "profiled_steps": STEPS, "wall_ms": wall * 1e3,

@@ -1,7 +1,9 @@
 """Attention call sites of the model: prefill (flash) and single-token
 decode, both through :mod:`repro_torch.kernels.ops`.
 
-The counterpart of ``repro/models/attention.py:58-78, 158-190``.  Masking
+The counterpart of ``repro/models/attention.py:58-78, 158-190``; paged
+decode reads the page pool directly (kernel K3) where the reference
+gathers pages into the dense view first.  Masking
 is positional (``repro/models/attention.py:32-44``): every query and key
 carries an absolute position; causality, sliding windows and empty cache
 slots (position < 0) are one predicate, so prefill, decode and rolling
@@ -39,3 +41,16 @@ def decode_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     Returns (B,Hq,D)."""
     return ops.decode_attention(q, k, v, q_pos, kv_pos, window=window,
                                 softcap=cfg.attn_logit_softcap)
+
+
+def paged_decode_attention(cfg: ModelConfig, q: torch.Tensor,
+                           k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           page_tables: torch.Tensor, q_pos: torch.Tensor,
+                           kv_pos_pages: torch.Tensor, *,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """q (B,Hq,D) vs a page pool k/v (P+1,page,Hkv,D) through page_tables
+    (B,ppr); q_pos (B,), kv_pos_pages (P+1,page) (-1 = empty, the null
+    page is all -1).  Returns (B,Hq,D)."""
+    return ops.paged_decode_attention(q, k_pages, v_pages, page_tables,
+                                      q_pos, kv_pos_pages, window=window,
+                                      softcap=cfg.attn_logit_softcap)

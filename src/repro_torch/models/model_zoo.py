@@ -5,8 +5,10 @@ The counterpart of ``repro/models/model_zoo.py``::
     param_table(cfg)                   -> {path: ParamSpec}
     init(cfg, generator)               -> params (on the generator's device)
     prefill(cfg, params, batch, cache, lengths=None) -> (last_logits, cache)
-    decode(cfg, params, cache, tokens, t, active=None) -> (logits, cache)
+    decode(cfg, params, cache, tokens, t, active=None, page_tables=None)
+                                       -> (logits, cache)
     init_cache(cfg, batch, max_len, device) -> cache
+    init_paged_pool(cfg, total_pages, page_size, device) -> page pool
 
 Other families raise ``NotImplementedError`` until their slice is ported.
 """
@@ -43,11 +45,19 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache, lengths=None):
     return transformer.prefill(cfg, params, batch, cache, lengths=lengths)
 
 
-def decode(cfg: ModelConfig, params: Params, cache, tokens, t, active=None):
+def decode(cfg: ModelConfig, params: Params, cache, tokens, t, active=None,
+           page_tables=None):
     _dense(cfg)
-    return transformer.decode_step(cfg, params, cache, tokens, t, active)
+    return transformer.decode_step(cfg, params, cache, tokens, t, active,
+                                   page_tables)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     _dense(cfg)
     return transformer.init_cache(cfg, batch, max_len, device)
+
+
+def init_paged_pool(cfg: ModelConfig, total_pages: int, page_size: int,
+                    device=None):
+    _dense(cfg)
+    return transformer.init_paged_pool(cfg, total_pages, page_size, device)

@@ -16,11 +16,20 @@ engine gets from ``jnp.where(active, new, old)``.
 
 Modes: ``prefill`` (full sequence, fills the cache) and ``decode`` (one
 token per row against the cache).  Training is not ported yet.
+
+Decode also runs against a **paged pool** (:func:`init_paged_pool`):
+``{"k", "v": (L, P+1, page, Hkv, Dh), "pos": (L, P+1, page)}``, page ``P``
+the reserved null page (pos -1 for ever), and a ``(B, ppr)`` page table
+per step.  Row b's position t lives at page ``table[b, (t % W) // page]``,
+offset ``t % page`` (``W = ppr * page``): the dense rolling layout with
+one indirection, so attention reads the pool in place (kernel K3) and
+the token stream equals the dense one.  Prefill always fills a dense
+cache; the serving engine copies it into pages.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -140,15 +149,33 @@ def _cache_write(cache: Cache, k: torch.Tensor, v: torch.Tensor,
     cache["pos"][b, slots] = positions.to(cache["pos"].dtype)
 
 
+def _page_write(pool: Cache, k: torch.Tensor, v: torch.Tensor,
+                positions: torch.Tensor, paging) -> None:
+    """The paged counterpart of :func:`_cache_write` for one decode token
+    per row: write k/v (B,1,Hkv,Dh) of the rows in ``paging.rows`` in
+    place at their (page, offset)."""
+    rows, pages, offs = paging.rows, paging.write_pages, paging.write_offsets
+    pool["k"][pages, offs] = k[rows, 0].to(pool["k"].dtype)
+    pool["v"][pages, offs] = v[rows, 0].to(pool["v"].dtype)
+    pool["pos"][pages, offs] = positions[rows, 0].to(pool["pos"].dtype)
+
+
 def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     positions: torch.Tensor, cache: Optional[Cache],
                     mode: str, rows: Optional[torch.Tensor] = None,
-                    prefix: str = "attn/", rope=None) -> torch.Tensor:
+                    prefix: str = "attn/", rope=None,
+                    paging: Optional["Paging"] = None) -> torch.Tensor:
     """Pre-norm attention residual branch (writes ``cache`` in place)."""
     window = cfg.sliding_window
     h = apply_norm(cfg, p, prefix + "norm", x)
     q, k, v = qkv_project(cfg, p, h, positions, prefix, rope)
-    if mode == "decode":
+    if mode == "decode" and paging is not None:
+        _page_write(cache, k, v, positions, paging)
+        o = attention.paged_decode_attention(
+            cfg, q[:, 0], cache["k"], cache["v"], paging.tables,
+            positions[:, 0].contiguous(), cache["pos"], window=window)
+        o = o[:, None]                                        # (B,1,Hq,Dh)
+    elif mode == "decode":
         # x: (B,1,d); the cache holds the history INCLUDING this token
         _cache_write(cache, k, v, positions, rows)
         o = attention.decode_attention(cfg, q[:, 0], cache["k"], cache["v"],
@@ -177,17 +204,20 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
 def dense_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Cache], mode: str,
                 rows: Optional[torch.Tensor] = None,
-                rope=None) -> torch.Tensor:
+                rope=None, paging: Optional["Paging"] = None
+                ) -> torch.Tensor:
     x = x + attention_block(cfg, p, x, positions, cache, mode, rows,
-                            rope=rope)
+                            rope=rope, paging=paging)
     return x + mlp_block(cfg, p, x)
 
 
 def forward(cfg: ModelConfig, params: Params, embeds: torch.Tensor,
             positions: torch.Tensor, cache: Optional[Cache], mode: str,
-            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+            rows: Optional[torch.Tensor] = None,
+            paging: Optional["Paging"] = None) -> torch.Tensor:
     """Run the layer stack (a loop over the stacked ``layers`` axis);
-    layer i reads and writes slice i of every cache leaf."""
+    layer i reads and writes slice i of every cache leaf (of the page
+    pool, with ``paging``)."""
     stacked, _ = layer_slice(params)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x = embeds
@@ -196,7 +226,7 @@ def forward(cfg: ModelConfig, params: Params, embeds: torch.Tensor,
         layer_cache = ({k: v[i] for k, v in cache.items()}
                        if cache is not None else None)
         x = dense_layer(cfg, layer_params, x, positions, layer_cache, mode,
-                        rows, rope)
+                        rows, rope, paging)
     return x
 
 
@@ -242,6 +272,29 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                               device=device)}
 
 
+def init_paged_pool(cfg: ModelConfig, total_pages: int, page_size: int,
+                    device=None) -> Cache:
+    """Allocate a paged KV pool: k/v (L, P+1, page, Hkv, Dh) zeros, pos
+    (L, P+1, page) = -1.  Page ``P = total_pages`` is the null page that
+    pads every page table; nothing ever writes it."""
+    L, Hkv, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    kv = (L, total_pages + 1, page_size, Hkv, Dh)
+    return {"k": torch.zeros(kv, dtype=cfg.compute_dtype, device=device),
+            "v": torch.zeros(kv, dtype=cfg.compute_dtype, device=device),
+            "pos": torch.full((L, total_pages + 1, page_size), -1,
+                              dtype=torch.int32, device=device)}
+
+
+class Paging(NamedTuple):
+    """One decode step's view of the page tables, built once and handed
+    to every layer: the (B, ppr) tables, and for each written row its
+    row index, physical page and offset in the page."""
+    tables: torch.Tensor
+    rows: torch.Tensor
+    write_pages: torch.Tensor
+    write_offsets: torch.Tensor
+
+
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             cache: Cache, lengths: Optional[torch.Tensor] = None):
     """Full-sequence forward; fills ``cache`` in place.
@@ -266,10 +319,12 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                 tokens: torch.Tensor, t: torch.Tensor,
-                active: Optional[torch.Tensor] = None):
+                active: Optional[torch.Tensor] = None,
+                page_tables: Optional[torch.Tensor] = None):
     """One decode step. tokens: (B,), t: (B,) current positions; ``active``
-    (B,) bool limits the cache writes to those rows.
-    Returns (logits (B,V) float32, cache)."""
+    (B,) bool limits the cache writes to those rows.  With ``page_tables``
+    (B, ppr) int32 on the tokens' device, ``cache`` is a page pool
+    (:func:`init_paged_pool`).  Returns (logits (B,V) float32, cache)."""
     batch = {"tokens": tokens[:, None], "offset": t}
     emb, positions = assemble_embeds(cfg, params, batch)
     rows = None
@@ -278,5 +333,20 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         # the step issues no device-to-host sync
         rows = torch.nonzero(active.cpu().to(torch.bool)).squeeze(1).to(
             tokens.device)
-    x = forward(cfg, params, emb, positions, cache, "decode", rows)
+    paging = None
+    if page_tables is not None:
+        page = cache["k"].shape[2]
+        W = page_tables.shape[1] * page
+        if cfg.sliding_window is not None and cfg.sliding_window < W:
+            raise NotImplementedError(
+                f"paged decode of a sliding-window config "
+                f"(window {cfg.sliding_window} < max_len {W}) is not "
+                f"ported: the reference keeps rolling-window rows per slot")
+        if rows is None:
+            rows = torch.arange(tokens.shape[0], device=tokens.device)
+        slot = t[rows].long().remainder(W)
+        paging = Paging(page_tables, rows,
+                        page_tables[rows, slot // page].long(),
+                        slot.remainder(page))
+    x = forward(cfg, params, emb, positions, cache, "decode", rows, paging)
     return output_head(cfg, params, x)[:, 0], cache

@@ -11,9 +11,12 @@ The counterpart of ``repro/platform.py`` for the live runtime::
     cc.tick()                                # scrape -> route -> serve
     cc.drain()                               # finish every backlog
 
-Policy shorthands: a number in [0, 100] (static split) or ``"auto"``
-(the paper's Eqs (1)-(4)).  The simulator (``Continuum.simulate`` /
-``sweep``) is not ported yet.
+A chain of :class:`TierSpec` (``Continuum(topology=Topology(...))``)
+may give a tier a paged KV pool with prefix sharing
+(``TierSpec(page_size=16, pool_pages=...)``).  Policy shorthands: a
+number in [0, 100] (static split) or ``"auto"`` (the paper's Eqs
+(1)-(4)).  The simulator (``Continuum.simulate`` / ``sweep``) is not
+ported yet.
 """
 
 from __future__ import annotations

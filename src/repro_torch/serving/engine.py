@@ -1,22 +1,35 @@
 """Serving engine: a continuous-batching endpoint over one model.
 
-The port's counterpart of ``repro/serving/engine.py`` (the dense pool;
-the paged pool is not ported yet).  One :class:`Endpoint` wraps a
-(config, params) pair and a KV cache pool of ``slots`` rows of
-``max_len`` tokens: requests claim and release slots independently, and
-one decode step advances every active slot.  Latency per request is what
-feeds the paper's Eq (1).
+The port's counterpart of ``repro/serving/engine.py``.  One
+:class:`Endpoint` wraps a (config, params) pair and a KV cache pool:
+requests claim and release slots independently, and one decode step
+advances every active slot.  Latency per request is what feeds the
+paper's Eq (1).
 
 The endpoint holds a *reference* to the params it is given: every tier
 of a continuum serves the one set of weights (3.3 GB at full width in
 bf16), never a copy.
 
+The pool has two layouts:
+
+* **dense** (default): one ``max_len`` cache row per slot.
+* **paged** (``paged=True``): ``total_pages`` pages of ``page_size``
+  tokens (:class:`~repro_torch.cache.PagePool`) plus one null page that
+  pads every page table.  A request claims a page table sized to its
+  extent; requests with the same prompt share its pages through the
+  :class:`~repro_torch.cache.PrefixRegistry` (copy-on-write past the fork
+  point), and an exact-prompt hit skips prefill entirely.  Decode reads
+  the pool in place through the page tables (kernel K3 on the card),
+  where the reference gathers pages into the dense view and scatters the
+  written page back; the token stream equals the dense one.  Migration
+  payloads (:class:`PagedRow`) carry only the used pages.
+
 Prefill is bucketed as in the reference: prompts are grouped by length,
 each group runs at a power-of-two batch (the last real row repeated) and
-a power-of-two length, on a fresh small cache
-whose real rows are then copied into the pool.  Decode masks inactive
-rows, so a retired row's cache stays bit-for-bit as it was while its
-neighbours decode.  Greedy argmax happens on the host.
+a power-of-two length, on a fresh small dense cache whose real rows are
+then copied into the pool (into the claimed pages, when paged).  Decode
+masks inactive rows, so a retired row's cache stays bit for bit as it
+was while its neighbours decode.  Greedy argmax happens on the host.
 """
 
 from __future__ import annotations
@@ -27,6 +40,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.cache import (PagePool, PrefixRegistry, pages_for_tokens,
+                               pages_needed, token_extent)
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import model_zoo
 from repro_torch.models.common import ModelConfig
@@ -52,17 +67,60 @@ class Request:
     failed: bool = False
 
 
+@dataclasses.dataclass
+class PagedRow:
+    """One extracted paged row, the migration payload: each pool leaf
+    narrowed to the ``n_pages`` pages covering the row's filled
+    positions (shape (L, n_pages, page, ...))."""
+    n_pages: int
+    pos: int
+    page_leaves: Dict[str, torch.Tensor]
+
+    @property
+    def nbytes(self) -> float:
+        return float(sum(l.numel() * l.element_size()
+                         for l in self.page_leaves.values()))
+
+
+def _upload(device: torch.device, *arrays: np.ndarray,
+            dtype=torch.int32) -> Tuple[torch.Tensor, ...]:
+    """Host integer arrays as tensors on ``device``, in their shapes.  On
+    a card they travel packed in one pinned buffer with one copy that
+    does not wait for the stream (a pageable copy would)."""
+    flat = [np.asarray(a).reshape(-1) for a in arrays]
+    if device.type == "cpu":
+        host = torch.from_numpy(np.concatenate(flat)).to(dtype)
+        dev = host
+    else:
+        host = torch.empty(sum(f.size for f in flat), dtype=dtype,
+                           pin_memory=True)
+        np.concatenate(flat, out=host.numpy(), casting="unsafe")
+        dev = host.to(device, non_blocking=True)
+    out, at = [], 0
+    for a, f in zip(arrays, flat):
+        out.append(dev[at:at + f.size].view(np.shape(a)))
+        at += f.size
+    return tuple(out)
+
+
 class Endpoint:
     """A deployed model ("Knative Service" analogue) on one tier.
 
     ``slots`` is the max concurrent sequences; requests batch up to
-    ``slots`` per decode step.  ``device`` defaults to ``"cuda"`` and must
-    hold ``params`` already (no silent copies); ``device="cpu"`` runs the
-    plain attention versions on the CPU.
+    ``slots`` per decode step.  With ``paged=True`` the KV pool is
+    ``total_pages`` pages of ``page_size`` tokens (default: ``slots``
+    full rows) and admission is bounded by pages, not slots alone;
+    ``prefix_cache`` keeps up to ``prefix_capacity`` prompts resident.
+    ``device`` defaults to ``"cuda"`` and must hold ``params`` already (no
+    silent copies); ``device="cpu"`` runs the plain attention versions on
+    the CPU.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 8,
-                 max_len: int = 256, device: DeviceLike = "cuda"):
+                 max_len: int = 256, device: DeviceLike = "cuda",
+                 paged: bool = False, page_size: int = 16,
+                 total_pages: Optional[int] = None,
+                 prefix_cache: bool = True, prefix_capacity: int = 64):
         self.device = resolve(device)
         for name, p in params.items():
             if p.device.type != self.device.type:
@@ -76,10 +134,53 @@ class Endpoint:
         self.max_len = max_len
         self.slot_pos = np.zeros(slots, np.int32)          # next position
         self.slot_free = [True] * slots
-        self.cache = model_zoo.init_cache(cfg, slots, max_len, self.device)
-        # Single-row init template, built once: reset_slot restores a row
-        # from it instead of materializing a pool-sized init.
-        self._row_init = model_zoo.init_cache(cfg, 1, max_len, self.device)
+        self.peak_active = 0
+        self.paged = bool(paged)
+        self.page_size = int(page_size)
+        if self.paged:
+            if not (0 < page_size <= max_len) or max_len % page_size:
+                raise ValueError(
+                    f"page_size must divide max_len ({max_len}), "
+                    f"got {page_size}")
+            self.pages_per_row = max_len // page_size
+            if total_pages is None:
+                total_pages = slots * self.pages_per_row
+            if total_pages < self.pages_per_row:
+                raise ValueError(
+                    f"total_pages={total_pages} cannot hold one full row "
+                    f"({self.pages_per_row} pages)")
+            self.total_pages = int(total_pages)
+            self.pool: Optional[PagePool] = PagePool(self.total_pages,
+                                                     self.page_size)
+            self.prefix: Optional[PrefixRegistry] = (
+                PrefixRegistry(self.pool, prefix_capacity)
+                if prefix_cache else None)
+            # the reserved always-empty page that pads every table to a
+            # fixed (slots, pages_per_row) shape
+            self._null_page = self.total_pages
+            self._tables: List[Optional[List[int]]] = [None] * slots
+            self._table_np = np.full((slots, self.pages_per_row),
+                                     self._null_page, np.int32)
+            # exact-prompt hits pending their (free) first token
+            self._pending_first: Dict[int, Tuple[int, int]] = {}
+            # miss claims carrying a registrable prompt
+            self._claim_meta: Dict[int, Optional[np.ndarray]] = {}
+            self.prefill_hit_tokens = 0
+            self.prefill_total_tokens = 0
+            self.cache = model_zoo.init_paged_pool(
+                cfg, self.total_pages, self.page_size, self.device)
+        else:
+            self.pages_per_row = 0
+            self.total_pages = 0
+            self.pool = None
+            self.prefix = None
+            self.cache = model_zoo.init_cache(cfg, slots, max_len,
+                                              self.device)
+        # Single-row init template, built once: reset_slot restores a
+        # dense row from it instead of materializing a pool-sized init.
+        # A paged pool needs only its shapes (cache_nbytes_per_row).
+        self._row_init = model_zoo.init_cache(
+            cfg, 1, max_len, "meta" if self.paged else self.device)
         # Length padding is sound for the dense family (causal masking
         # hides padded positions; the model zoo serves no other family
         # yet) and must stay within the rolling window.
@@ -93,63 +194,307 @@ class Endpoint:
         return sum(not f for f in self.slot_free)
 
     def try_claim(self, tokens: Optional[np.ndarray] = None,
-                  max_new: int = 1) -> Optional[int]:
+                  max_new: int = 1,
+                  reserve_tokens: Optional[int] = None) -> Optional[int]:
         """Claim the lowest free slot; None when the pool is full.
-        (``tokens``/``max_new`` size paged claims in the reference; a
-        dense pool ignores them.)"""
-        del tokens, max_new
-        for i, free in enumerate(self.slot_free):
-            if free:
-                self.slot_free[i] = False
-                return i
-        return None
+
+        A paged claim also reserves pages, sized from the request
+        (``tokens``/``max_new``), from an explicit token extent
+        (``reserve_tokens``, where a migrated row lands) or, with no size,
+        a full row; an exact prompt match in the prefix registry shares
+        the resident prompt pages and arms a compute-free prefill.  A
+        failed paged claim allocates nothing.  A dense pool ignores the
+        sizes."""
+        slot = next((i for i, free in enumerate(self.slot_free) if free),
+                    None)
+        if slot is None:
+            return None
+        if self.paged and not self._claim_pages(slot, tokens, max_new,
+                                                reserve_tokens):
+            return None
+        self.slot_free[slot] = False
+        self.peak_active = max(self.peak_active, self.active)
+        return slot
 
     def reset_slot(self, slot: int) -> None:
         """Restore one slot's cache rows from the single-row template
         (what a recurrent family needs between requests; attention rows
-        are self-healing, so the dense main path never calls it)."""
+        are self-healing, so the dense main path never calls it).  A
+        paged pool has no per-slot rows: its pages are scrubbed when they
+        are allocated."""
+        if self.paged:
+            return
         for name, leaf in self.cache.items():
             leaf[:, slot] = self._row_init[name][:, 0]
 
     def release(self, slot: int) -> None:
         self.slot_free[slot] = True
         self.slot_pos[slot] = 0
+        if self.paged:
+            table = self._tables[slot]
+            if table is not None:
+                self.pool.release(table)
+            self._tables[slot] = None
+            self._table_np[slot] = self._null_page
+            self._pending_first.pop(slot, None)
+            self._claim_meta.pop(slot, None)
+
+    # -- paged bookkeeping (reference engine.py:598-705) -------------------
+    @property
+    def free_pages(self) -> int:
+        return self.pool.free_pages if self.paged else 0
+
+    @property
+    def used_pages(self) -> int:
+        return self.pool.used_pages if self.paged else 0
+
+    def page_need(self, prompt_len: int, max_new: int) -> int:
+        """Pages a fresh request of this size must be able to reserve
+        (sharing-blind: an admission bound, never an overclaim)."""
+        if not self.paged:
+            return 0
+        return pages_needed(prompt_len, max_new, self.page_size, self.max_len)
+
+    def pages_for(self, n_tokens: int) -> int:
+        """Pages reserving positions ``[0, n_tokens)`` (a full row past
+        ``max_len``: the rolling wrap touches every page)."""
+        if not self.paged:
+            return 0
+        if n_tokens > self.max_len:
+            return self.pages_per_row
+        return max(1, pages_for_tokens(n_tokens, self.page_size))
+
+    def resident_page_demand(self) -> int:
+        """Pages referenced by live page tables (a shared page counts once
+        per table: a demand signal, not an occupancy count)."""
+        return sum(len(t) for t in self._tables if t is not None)
+
+    @property
+    def admissible_pages(self) -> int:
+        """Pages a new claim could obtain: free pages plus pages pinned
+        only by the prefix registry (:meth:`_alloc` evicts those under
+        pressure)."""
+        pinned: set = set()
+        for t in self._tables:
+            if t is not None:
+                pinned.update(t)
+        return self.pool.num_pages - len(pinned)
+
+    @property
+    def pool_nbytes(self) -> float:
+        """Bytes of the KV page pool (paged) or of the per-slot KV rows
+        (dense): the denominator of resident requests per GB."""
+        return float(sum(l.numel() * l.element_size()
+                         for l in self.cache.values()))
+
+    @property
+    def prefill_hit_rate(self) -> float:
+        """Share of offered prefill tokens whose KV was already resident
+        (exact prefix hits; 0 before any prefill)."""
+        if not self.paged or self.prefill_total_tokens == 0:
+            return 0.0
+        return self.prefill_hit_tokens / self.prefill_total_tokens
+
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        """Pool allocation with registry back-pressure: while the free
+        list falls short, evict the LRU prefix entry and retry, so no
+        request is refused memory that only the registry holds."""
+        ids = self.pool.alloc(n)
+        while ids is None and self.prefix is not None and len(self.prefix):
+            self.prefix.evict_lru()
+            ids = self.pool.alloc(n)
+        return ids
+
+    def _scrub(self, pids: List[int]) -> None:
+        """Reset freshly allocated pages to the init values (k/v 0, pos
+        -1: a recycled page must not revive its last owner's positions),
+        one indexed fill per leaf over all layers."""
+        if not pids:
+            return
+        idx, = _upload(self.device, np.asarray(pids), dtype=torch.long)
+        self.cache["k"].index_fill_(1, idx, 0)
+        self.cache["v"].index_fill_(1, idx, 0)
+        self.cache["pos"].index_fill_(1, idx, -1)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """The device half of a copy-on-write fork (all layers at once)."""
+        for leaf in self.cache.values():
+            leaf[:, dst] = leaf[:, src]
+
+    def _set_table(self, slot: int, table: List[int]) -> None:
+        self._tables[slot] = table
+        self._table_np[slot] = self._null_page
+        self._table_np[slot, :len(table)] = table
+
+    def _cow_page(self, slot: int, wp: int) -> None:
+        """Copy-on-write fork page ``wp`` of ``slot``'s table."""
+        table = self._tables[slot]
+        fresh = self._alloc(1)
+        if fresh is None:
+            raise RuntimeError(
+                f"page pool exhausted during copy-on-write (slot {slot})")
+        self._copy_page(table[wp], fresh[0])
+        self.pool.release([table[wp]])
+        table[wp] = fresh[0]
+        self._table_np[slot, wp] = fresh[0]
+
+    def _grow_table(self, slot: int) -> None:
+        """Append one scrubbed page (a row decoding past its
+        reservation)."""
+        fresh = self._alloc(1)
+        if fresh is None:
+            raise RuntimeError(
+                f"page pool exhausted growing slot {slot}'s table")
+        self._scrub(fresh)
+        self._tables[slot].append(fresh[0])
+        self._table_np[slot, len(self._tables[slot]) - 1] = fresh[0]
+
+    def _claim_pages(self, slot: int, tokens, max_new: int,
+                     reserve_tokens: Optional[int]) -> bool:
+        page = self.page_size
+        if reserve_tokens is not None or tokens is None:
+            n = (self.pages_for(reserve_tokens)
+                 if reserve_tokens is not None else self.pages_per_row)
+            ids = self._alloc(n)
+            if ids is None:
+                return False
+            self._scrub(ids)
+            self._set_table(slot, ids)
+            return True
+        L = len(tokens)
+        extent = token_extent(L, max_new)
+        wrap = extent > self.max_len
+        n_total = pages_needed(L, max_new, page, self.max_len)
+        hit = (None if (wrap or self.prefix is None)
+               else self.prefix.lookup(tokens))
+        if hit is None:
+            ids = self._alloc(n_total)
+            if ids is None:
+                return False
+            self._scrub(ids)
+            self._set_table(slot, ids)
+            # a wrapping row rewrites every page, so its prompt pages can
+            # never be pinned immutable: not registrable
+            self._claim_meta[slot] = (np.asarray(tokens, np.int32)
+                                      if (self.prefix is not None
+                                          and not wrap) else None)
+            return True
+        # Exact-prompt hit: reference the resident prompt pages; the page
+        # the first decode write lands in must be private (COW fork).
+        n_pref = len(hit.page_ids)
+        cow_partial = extent > L and L % page != 0
+        fresh_needed = (n_total - n_pref) + (1 if cow_partial else 0)
+        # retain BEFORE allocating: _alloc may evict this very entry
+        # under pressure, and our references must keep its pages alive
+        self.pool.retain(hit.page_ids)
+        fresh = self._alloc(fresh_needed)
+        if fresh is None:
+            self.pool.release(hit.page_ids)
+            return False
+        table = list(hit.page_ids)
+        fi = 0
+        if cow_partial:
+            cow = fresh[fi]
+            fi += 1
+            self._copy_page(table[L // page], cow)
+            self.pool.release([table[L // page]])
+            table[L // page] = cow
+        tail = fresh[fi:]
+        if tail:
+            self._scrub(tail)
+            table += tail
+        self._set_table(slot, table)
+        self._pending_first[slot] = (hit.first_token, hit.length)
+        return True
 
     # -- row state ---------------------------------------------------------
-    def extract_rows(self, slots: List[int]) -> List[Dict[str, torch.Tensor]]:
-        """Copy the given slots' cache rows out of the pool: one dict per
-        slot, each leaf with the slot axis narrowed to size 1 — the unit
-        of state a migration ships to a peer endpoint."""
-        return [{name: leaf[:, s:s + 1].clone()
-                 for name, leaf in self.cache.items()} for s in slots]
+    def extract_rows(self, slots: List[int]) -> list:
+        """Copy the given slots' cache state out of the pool, the unit a
+        migration ships to a peer endpoint.  Dense: one dict per slot, each
+        leaf with the slot axis narrowed to 1.  Paged: a :class:`PagedRow`
+        with only the pages covering the row's filled positions."""
+        if not self.paged:
+            return [{name: leaf[:, s:s + 1].clone()
+                     for name, leaf in self.cache.items()} for s in slots]
+        out = []
+        for s in slots:
+            pos = int(self.slot_pos[s])
+            n = min(self.pages_for(max(pos, 1)), len(self._tables[s]))
+            idx, = _upload(self.device, np.asarray(self._tables[s][:n]),
+                           dtype=torch.long)
+            out.append(PagedRow(n, pos, {name: leaf[:, idx]
+                                         for name, leaf in
+                                         self.cache.items()}))
+        return out
 
-    def insert_rows(self, rows: List[Dict[str, torch.Tensor]],
-                    slots: List[int], positions: List[int]) -> None:
+    def insert_rows(self, rows: list, slots: List[int],
+                    positions: List[int]) -> None:
         """Write extracted row states into *claimed* slots of this pool and
-        set their decode positions (decode resumes with no re-prefill)."""
+        set their decode positions (decode resumes with no re-prefill).
+        Paged rows land in the slot's reserved pages, grown on demand."""
         for state, slot, pos in zip(rows, slots, positions):
-            for name, leaf in self.cache.items():
-                leaf[:, slot:slot + 1] = state[name].to(leaf.device)
+            if not self.paged:
+                for name, leaf in self.cache.items():
+                    leaf[:, slot:slot + 1] = state[name].to(leaf.device)
+            else:
+                while len(self._tables[slot]) < state.n_pages:
+                    self._grow_table(slot)
+                idx, = _upload(self.device,
+                               np.asarray(self._tables[slot][:state.n_pages]),
+                               dtype=torch.long)
+                for name, leaf in self.cache.items():
+                    leaf[:, idx] = state.page_leaves[name].to(leaf.device)
             self.slot_pos[slot] = min(pos, self.max_len)
 
     def cache_nbytes_per_row(self, length: int) -> float:
         """Logical bytes of one slot's live cache state at decode position
-        ``length`` — what a migration ships over a link: leaves with a
-        sequence axis count only their filled positions.  Computed from
-        shapes and dtypes, never from device buffers."""
-        eff = min(length, self.max_len)
+        ``length``, what a migration ships over a link: leaves with a
+        sequence axis count only their filled positions, rounded up to
+        whole pages when paged.  Computed from shapes and dtypes, never
+        from device buffers."""
+        if self.paged:
+            eff = min(self.pages_for(max(length, 1)) * self.page_size,
+                      self.max_len)
+        else:
+            eff = min(length, self.max_len)
         total = 0.0
         for leaf in self._row_init.values():
             per_row = float(np.prod(leaf.shape) * leaf.element_size())
-            total += per_row * eff / leaf.shape[_LEN_AXIS]
+            total += per_row * (eff / leaf.shape[_LEN_AXIS])
         return total
 
     # -- steps -------------------------------------------------------------
     @torch.no_grad()
     def prefill_batch(self, prompts: Dict[int, np.ndarray]) -> Dict[int, int]:
-        """Pack claimed slots' prompts into shared prefill calls, grouped
-        by length, each at a power-of-two batch (capped at the pool) and a
-        power-of-two length.  Returns slot -> first generated token."""
+        """Prefill claimed slots' prompts; returns slot -> first generated
+        token.  In a paged pool a slot whose claim hit the prefix registry
+        skips compute (its prompt pages are resident and the registered
+        first token seeds its stream); the rest prefill and register
+        their prompts."""
+        if not self.paged:
+            return self._prefill_groups(prompts)
+        self.prefill_total_tokens += sum(len(t) for t in prompts.values())
+        out: Dict[int, int] = {}
+        miss: Dict[int, np.ndarray] = {}
+        for slot, toks in prompts.items():
+            pend = self._pending_first.pop(slot, None)
+            if pend is not None:
+                first, L = pend
+                self.slot_pos[slot] = L
+                self.prefill_hit_tokens += L
+                out[slot] = first
+            else:
+                miss[slot] = toks
+        if miss:
+            out.update(self._prefill_groups(miss))
+        return out
+
+    def _prefill_groups(self, prompts: Dict[int, np.ndarray]
+                        ) -> Dict[int, int]:
+        """Pack prompts into shared prefill calls, grouped by length, each
+        at a power-of-two batch (capped at the pool) and a power-of-two
+        length, on a fresh small cache whose real rows are copied into the
+        pool."""
         by_len: Dict[int, List[Tuple[int, np.ndarray]]] = {}
         for slot, toks in prompts.items():
             by_len.setdefault(len(toks), []).append((slot, toks))
@@ -171,33 +516,97 @@ class Endpoint:
                 self.cfg, self.params,
                 {"tokens": torch.as_tensor(tok, device=self.device)},
                 small, lengths=lengths)
-            # copy the G real rows into their slots (the repeated rows
-            # hold identical values, so they are left out of the copy)
-            idx = torch.as_tensor([slot for slot, _ in group],
-                                  device=self.device)
-            for name, leaf in self.cache.items():
-                leaf[:, idx] = small[name][:, :G]
+            # copy the G real rows into the pool (the repeated rows hold
+            # identical values, so they are left out of the copy)
+            if self.paged:
+                self._adopt_group(group, small, L)
+            else:
+                idx = torch.as_tensor([slot for slot, _ in group],
+                                      device=self.device)
+                for name, leaf in self.cache.items():
+                    leaf[:, idx] = small[name][:, :G]
             first = logits[:G].argmax(dim=-1).cpu().numpy()
             for i, (slot, _) in enumerate(group):
                 self.slot_pos[slot] = L
                 out[slot] = int(first[i])
+                if self.paged:
+                    self._register_prefix(slot, out[slot])
         return out
+
+    def _adopt_group(self, group, small, L: int) -> None:
+        """Copy one prefilled length group's rows into their slots'
+        reserved pages: the first ``pages_for(L)`` pages of each row, one
+        indexed copy per leaf over all layers and rows.  Positions in
+        ``[L, n*page)`` carry pos >= L (padded bucket) or -1 and stay
+        masked until decode overwrites them."""
+        n, page = self.pages_for(max(L, 1)), self.page_size
+        G = len(group)
+        idx, = _upload(self.device,
+                       np.concatenate([self._tables[slot][:n]
+                                       for slot, _ in group]),
+                       dtype=torch.long)
+        for name, leaf in self.cache.items():
+            rows = small[name][:, :G, :n * page]
+            leaf.index_copy_(1, idx, rows.reshape(
+                leaf.shape[0], G * n, page, *leaf.shape[3:]))
+
+    def _register_prefix(self, slot: int, first_token: int) -> None:
+        """Publish a just-prefilled prompt to the prefix registry.  The
+        registry's pages must stay immutable while the owner decodes on,
+        so a partly filled last page is registered as a private copy (the
+        full pages are shared as they are: the owner never rewrites
+        positions below its prompt length)."""
+        meta = self._claim_meta.pop(slot, None)
+        if meta is None or self.prefix is None:
+            return
+        L = len(meta)
+        n = self.pages_for(max(L, 1))
+        reg_ids = list(self._tables[slot][:n])
+        copied = None
+        if L % self.page_size != 0:
+            cp = self._alloc(1)
+            if cp is None:
+                return                 # pool too tight to pin: skip
+            self._copy_page(reg_ids[-1], cp[0])
+            reg_ids[-1] = cp[0]
+            copied = cp
+        self.prefix.register(meta, reg_ids, first_token)
+        if copied is not None:
+            # the registry holds its own reference now (or declined to)
+            self.pool.release(copied)
 
     @torch.no_grad()
     def decode_all(self, tokens_by_slot: Dict[int, int]) -> Dict[int, int]:
         """One decode step for every active slot: ``tokens_by_slot`` maps
         slot -> last emitted token; returns slot -> next token.  Slots
-        outside it are masked inactive: their cache rows are not written."""
+        outside it are masked inactive: their cache rows are not written.
+
+        A paged pool first makes every stepping row's write page private
+        (copy-on-write fork of a shared page, one page grown for a row
+        decoding past its reservation), then uploads the page tables once
+        for all layers."""
         tok = np.zeros(self.slots, np.int32)
         act = np.zeros(self.slots, bool)
         t = np.asarray(self.slot_pos, np.int32)
         for s, v in tokens_by_slot.items():
             tok[s] = v
             act[s] = True
-        logits, self.cache = model_zoo.decode(
-            self.cfg, self.params, self.cache,
-            torch.as_tensor(tok, device=self.device),
-            torch.as_tensor(t, device=self.device), torch.from_numpy(act))
+        if not self.paged:
+            tok_d, t_d = _upload(self.device, tok, t)
+            logits, self.cache = model_zoo.decode(
+                self.cfg, self.params, self.cache, tok_d, t_d,
+                torch.from_numpy(act))
+        else:
+            for s in tokens_by_slot:
+                wp = (int(self.slot_pos[s]) % self.max_len) // self.page_size
+                while wp >= len(self._tables[s]):
+                    self._grow_table(s)
+                if self.pool.is_shared(self._tables[s][wp]):
+                    self._cow_page(s, wp)
+            tok_d, t_d, tables = _upload(self.device, tok, t, self._table_np)
+            logits, self.cache = model_zoo.decode(
+                self.cfg, self.params, self.cache, tok_d, t_d,
+                torch.from_numpy(act), page_tables=tables)
         nxt = logits.argmax(dim=-1).cpu().numpy()
         out = {}
         for s in tokens_by_slot:

@@ -25,9 +25,12 @@ admitted into the freed slots the same step (packed bucketed prefill).
 With ``topology.waterfall`` a stalled tier spills its pending load down
 the chain.
 
-Every tier's endpoint holds a reference to the one set of weights
-deployed.  Hedging, migration, faults, traces, the wave scheduler and the
-sketch front end are not ported yet (ROADMAP.md).
+A tier whose spec sets ``page_size`` serves from a paged KV pool: its
+admission walks the queue head in pages (memory actually reserved, not
+slots alone), and its KPA scrape meters demand in full-row equivalents
+of pages.  Every tier's endpoint holds a reference to the one set of
+weights deployed.  Hedging, migration, faults, traces, the wave
+scheduler and the sketch front end are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -146,10 +149,15 @@ class Tier:
     def deploy(self, fn_name: str, model_cfg: ModelConfig, params,
                autoscaling: Optional[AutoscalingPolicy] = None) -> None:
         """Stand up this tier's endpoint pool for one function (over the
-        caller's params, shared, not copied)."""
+        caller's params, shared, not copied); paged when the tier's spec
+        sets ``page_size``."""
+        page_size = getattr(self.cfg, "page_size", None)
         self.endpoints[fn_name] = Endpoint(
             model_cfg, params, slots=self.cfg.slots,
-            max_len=self.cfg.max_len, device=self.device)
+            max_len=self.cfg.max_len, device=self.device,
+            paged=page_size is not None,
+            page_size=page_size if page_size is not None else 16,
+            total_pages=getattr(self.cfg, "pool_pages", None))
         self.inflight.setdefault(fn_name, {})
         self.metrics.register(fn_name)
         # A TierSpec that declares its own KPA bounds governs its pool;
@@ -183,12 +191,28 @@ class Tier:
 
     def admission_budget(self, fn_name: str, items: List[_Queued],
                          cap: Optional[int] = None) -> int:
-        """How many of ``items`` this tier can admit right now: free slots
-        bounded by ``cap`` (the caller's KPA-admitted concurrency)."""
+        """How many of ``items`` (in order) this tier can admit right now:
+        free slots bounded by ``cap`` (the caller's KPA-admitted
+        concurrency).  A paged pool also walks the queue head charging each
+        request the pages it must be able to reserve (sharing-blind, so
+        never an overclaim)."""
+        ep = self.endpoints[fn_name]
         budget = self.free_slots(fn_name)
         if cap is not None:
             budget = min(budget, cap)
-        return max(0, min(budget, len(items)))
+        budget = max(0, min(budget, len(items)))
+        if not ep.paged or budget == 0:
+            return budget
+        free = ep.admissible_pages
+        n = 0
+        for item in items[:budget]:
+            need = ep.page_need(len(item.req.tokens),
+                                max(item.req.max_new, 1))
+            if need > free:
+                break
+            free -= need
+            n += 1
+        return n
 
     # -- continuous-batching decode loop ------------------------------------
     def admit(self, fn_name: str, items: List[_Queued]
@@ -450,11 +474,21 @@ class EdgeCloudContinuum:
 
         # KPA scrape: every (tier, fn) observes its assigned concurrency,
         # queued plus slot-resident, zeros included (that ages idle
-        # functions to zero)
+        # functions to zero).  A paged pool meters demand in pages,
+        # normalized to full-row equivalents (a half-row request is half
+        # a unit of demand).
         for ti, tier in enumerate(self.tiers):
             for fn, asc in tier.autoscalers.items():
-                conc = (len(pending.get((ti, fn), []))
-                        + tier.inflight_count(fn))
+                ep = tier.endpoints[fn]
+                if ep.paged:
+                    pages = sum(ep.page_need(len(it.req.tokens),
+                                             max(it.req.max_new, 1))
+                                for it in pending.get((ti, fn), []))
+                    pages += ep.resident_page_demand()
+                    conc = pages / ep.pages_per_row
+                else:
+                    conc = (len(pending.get((ti, fn), []))
+                            + tier.inflight_count(fn))
                 asc.observe(self._clock, float(conc))
                 asc.desired(self._clock)
 

@@ -8,7 +8,9 @@ Tolerances are the reference's own (``tests/test_kernels.py:17-19``):
 2e-5 abs / 2e-4 rel in float32, 2e-2 in bfloat16.
 
 The ``gpu`` tests hold each CUDA kernel against its plain version on the
-card (the check ``chip_smoke.py`` runs); they skip without one.  The
+card (the check ``chip_smoke.py`` runs), and the paged decode kernel K3
+bitwise against the dense one K2 on the gathered view; they skip without
+one.  The
 reference is imported through the ``jax_ref`` fixture, so on the card,
 where JAX is not installed, ``python -m pytest -m gpu
 tests/test_torch_kernels.py`` runs the ``gpu`` tests alone.
@@ -148,6 +150,85 @@ def test_decode_attention_plain_matches_reference(jax_ref, Hq, Hkv, window,
     _close(got, want_oracle, dtype)
 
 
+def _paged_pool(rng, B, ppr, page, Hkv, D, spare=3):
+    """A paged pool in the engine's layout: row b holds its last n_b tokens
+    at slots pos % W (W = ppr*page; a wrapped row uses every page), pages
+    drawn from a random permutation of the pool (no row's pages are
+    contiguous), short rows padded with the null page P (pos -1); row 0
+    is empty and one query sits before some of its row's keys.  Returns
+    (k_pages, v_pages, tables, q_pos, kv_pos_pages) as numpy arrays."""
+    W = ppr * page
+    ns = [0] + [int(rng.integers(1, 2 * W)) for _ in range(B - 1)]
+    used = [ppr if n > W else -(-n // page) for n in ns]
+    P = sum(used) + spare
+    ids = iter(rng.permutation(P))
+    tables = np.full((B, ppr), P, np.int32)
+    kv_pos_pages = np.full((P + 1, page), -1, np.int32)
+    q_pos = np.zeros(B, np.int32)
+    for b, (n, u) in enumerate(zip(ns, used)):
+        tables[b, :u] = [next(ids) for _ in range(u)]
+        for t in range(max(0, n - W), n):
+            s = t % W
+            kv_pos_pages[tables[b, s // page], s % page] = t
+        q_pos[b] = n - 1 if b != 1 else max(n - 3, 0)
+    k = rng.standard_normal((P + 1, page, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((P + 1, page, Hkv, D)).astype(np.float32)
+    return k, v, tables, q_pos, kv_pos_pages
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (13, None),
+                                            (None, 20.0), (13, 5.0)])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2)])     # G = 1, 2
+def test_paged_decode_attention_plain_matches_reference(jax_ref, Hq, Hkv,
+                                                        window, softcap,
+                                                        dtype):
+    """The plain K3 against the reference's paged kernel (Pallas in
+    interpret mode, as tests/test_paged_cache.py runs it) and against the
+    reference's dense oracle on the gathered view."""
+    jr, jnp = jax_ref, jax_ref.jnp
+    rng = np.random.default_rng(100 + 10 * Hq + Hkv)
+    B, ppr, page, D = 4, 4, 16, 64
+    k, v, tables, qp, kpp = _paged_pool(rng, B, ppr, page, Hkv, D)
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(jr, x, dtype) for x in (q, k, v))
+    got = t_ops.paged_decode_attention(qt, kt, vt, torch.from_numpy(tables),
+                                       torch.from_numpy(qp),
+                                       torch.from_numpy(kpp), window=window,
+                                       softcap=softcap)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    assert torch.count_nonzero(got[0]) == 0          # the empty row
+    want_kernel = jr.ops.paged_decode_attention(
+        qj, kj, vj, jnp.asarray(tables), jnp.asarray(qp), jnp.asarray(kpp),
+        window, softcap)
+    _close(got, want_kernel, dtype)
+    W = ppr * page
+    want_oracle = jr.ref.decode_attention(
+        qj, kj[tables].reshape(B, W, Hkv, D), vj[tables].reshape(B, W, Hkv, D),
+        jnp.asarray(qp), jnp.asarray(kpp[tables].reshape(B, W)),
+        window=window, softcap=softcap)
+    _close(got, want_oracle, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_plain_equals_dense_plain_on_gathered_view(dtype):
+    rng = np.random.default_rng(7)
+    B, ppr, page, Hkv, D = 5, 4, 8, 2, 32
+    k, v, tables, qp, kpp = (torch.from_numpy(x) for x in
+                             _paged_pool(rng, B, ppr, page, Hkv, D))
+    k, v = k.to(DTYPES[dtype]), v.to(DTYPES[dtype])
+    q = torch.from_numpy(rng.standard_normal((B, 2 * Hkv, D)).astype(
+        np.float32)).to(DTYPES[dtype])
+    got = t_ref.paged_decode_attention(q, k, v, tables, qp, kpp, window=20,
+                                       softcap=10.0)
+    idx = tables.long()
+    want = t_ref.decode_attention(
+        q, k[idx].reshape(B, ppr * page, Hkv, D),
+        v[idx].reshape(B, ppr * page, Hkv, D), qp,
+        kpp[idx].reshape(B, ppr * page), window=20, softcap=10.0)
+    assert torch.equal(got, want)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     rng = np.random.default_rng(2)
     q = torch.from_numpy(rng.standard_normal((1, 4, 2, 16)).astype(np.float32))
@@ -155,9 +236,14 @@ def test_cpu_tensors_take_the_plain_versions():
     t_ops.reset_launches()
     t_ops.flash_attention(q, q, q, pos, pos)
     t_ops.decode_attention(q[:, 0], q, q, pos[:, -1], pos)
+    t_ops.paged_decode_attention(q[:, 0], q[0, None], q[0, None],
+                                 torch.zeros((1, 1), dtype=torch.int32),
+                                 pos[:, -1], pos)
     assert t_ops.launches == {"flash_attention": 0, "flash_attention_plain": 1,
                               "decode_attention": 0,
-                              "decode_attention_plain": 1}
+                              "decode_attention_plain": 1,
+                              "paged_decode_attention": 0,
+                              "paged_decode_attention_plain": 1}
     t_ops.reset_launches()
     assert set(t_ops.launches.values()) == {0}
 
@@ -237,3 +323,40 @@ def test_decode_attention_kernel_matches_plain(cuda, B, T, Hq, Hkv, D, dtype):
     assert t_ops.launches["decode_attention"] == 1
     want = t_ref.decode_attention(q, k, v, qp, kp)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,ppr,page,Hq,Hkv,D,window,softcap", [
+    (16, 64, 16, 32, 32, 64, None, None),     # the paged serve's shape
+    (16, 64, 16, 32, 8, 64, None, None),
+    (5, 4, 16, 12, 4, 64, 13, 5.0),
+    (4, 8, 8, 4, 2, 16, None, 20.0),
+    (3, 6, 16, 8, 2, 128, 40, None),
+])
+def test_paged_decode_kernel_matches_plain_and_dense_kernel(
+        cuda, B, ppr, page, Hq, Hkv, D, window, softcap, dtype):
+    """K3 against its plain version, and bitwise against K2 on the
+    gathered contiguous view."""
+    td = DTYPES[dtype]
+    rng = np.random.default_rng(B * ppr + D)
+    k, v, tables, qp, kpp = (torch.from_numpy(x).to(cuda) for x in
+                             _paged_pool(rng, B, ppr, page, Hkv, D))
+    k, v = k.to(td), v.to(td)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((B, Hq, D), generator=gen, device=cuda).to(td)
+    t_ops.reset_launches()
+    got = t_ops.paged_decode_attention(q, k, v, tables, qp, kpp,
+                                       window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert t_ops.launches["paged_decode_attention"] == 1
+    want = t_ref.paged_decode_attention(q, k, v, tables, qp, kpp,
+                                        window=window, softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    idx = tables.long()
+    W = ppr * page
+    dense = t_ops.decode_attention(
+        q, k[idx].reshape(B, W, Hkv, D).contiguous(),
+        v[idx].reshape(B, W, Hkv, D).contiguous(), qp,
+        kpp[idx].reshape(B, W).contiguous(), window=window, softcap=softcap)
+    assert torch.equal(got, dense)
