@@ -10,11 +10,15 @@ Phases, each raising on failure (the script then exits non-zero):
    ``nvcc`` per source, in parallel) and report the build time;
 3. parity on the card: each kernel against its plain PyTorch version, in
    bfloat16 (2e-2) and float32 (2e-5 abs / 2e-4 rel), at the main path's
-   shapes and at ragged, windowed, soft-capped and grouped-query ones;
-   the paged kernel K3 over shuffled pages, and bitwise against K2 on the
-   gathered view;
-4. the smoke model served on the card against the same model on the CPU
-   through the plain attention versions (greedy ids must match);
+   shapes and at ragged, windowed, soft-capped and grouped-query ones,
+   hymba-1.5b's attention shapes among them (25 query heads over 5 kv
+   heads, window 1024); the paged kernel K3 over shuffled pages, and
+   bitwise against K2 on the gathered view; the selective-SSM scan K5 at
+   hymba-1.5b's width (I=3200, N=16; S = 1, 128, 512, 1024 and a
+   strong-decay case) in float32 (1e-4 abs / 1e-4 rel);
+4. the stablelm smoke model served on the card against the same model on
+   the CPU through the plain versions (greedy ids must match);
+4b. the same for the hymba smoke model (K1, K2 and K5 on the card);
 5. the dense main path: full-width stablelm-1.6b (bf16, seeded random
    weights drawn on the card) served by ``repro_torch.platform.Continuum``
    over a 2-tier edge -> cloud continuum (edge 2 slots, cloud 16,
@@ -33,10 +37,23 @@ Phases, each raising on failure (the script then exits non-zero):
    every request is served with 32 tokens, K3 (and K1) launched and no
    plain version did, some tier hit its prefix registry, and every pool
    drains balanced, holding only registry-pinned pages;
+5d. the hymba main path: full-width hymba-1.5b (bf16, 1.97 B parameters,
+   seeded random weights drawn on the card) served by the continuum over
+   edge 2 slots and cloud 16 (max_len 2048, policy auto), 40 requests of
+   32 new tokens ramped over 8 rounds, prompts of 64..512 tokens (the
+   lengths the SSM scan's rule admits) and four of 1024, whose 29
+   sliding-window layers wrap their 1024-wide rolling caches while the 3
+   global layers do not.  Fails unless every request is served with 32
+   tokens, K1, K2 and K5 launched (K5 once a layer a prefill call) and no
+   plain version did; then times one cloud endpoint's 512-token prefill
+   and 16-row decode step, with the device's busy share of each and its
+   time by kernel;
 6. timing of each kernel at the server's shapes (median over CUDA events,
    L2 flushed between launches) beside its bound, its plain version and a
    yardstick of PyTorch library calls (the port never calls them), printed
-   as one ``{"kernels": [...]}`` line.
+   as one ``{"kernels": [...]}`` line (K1 and K2 at stablelm's shapes, K3
+   at the paged tier's, K5 at hymba's); K1 and K2 are also timed at
+   hymba's shapes, on a line of their own.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the package beside this script, it prints no result and exits
@@ -57,6 +74,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
+PEAK_FP32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2),
        "float32": dict(atol=2e-5, rtol=2e-4)}
@@ -165,6 +183,11 @@ def parity() -> None:
         ("d16", 2, 70, 70, 4, 2, 16, True, None, None),
         ("d32", 2, 70, 70, 4, 4, 32, True, 16, 20.0),
         ("d128", 2, 130, 130, 4, 1, 128, True, None, None),
+        # hymba-1.5b: 25 query heads over 5 kv heads, window 1024 on 29
+        # layers (it masks only past 1024 tokens), none on 3
+        ("hymba-512", 2, 512, 512, 25, 5, 64, True, 1024, None),
+        ("hymba-win1024", 1, 1280, 1280, 25, 5, 64, True, 1024, None),
+        ("hymba-global", 1, 1024, 1024, 25, 5, 64, True, None, None),
     ]
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
@@ -189,6 +212,10 @@ def parity() -> None:
         ("d16", 4, 200, 4, 2, 16, None, None),
         ("d32", 4, 200, 4, 4, 32, None, None),
         ("d128", 4, 200, 8, 2, 128, None, None),
+        # hymba-1.5b: rolling 1024-wide caches (window 1024), global 2048
+        ("hymba-rolling", 16, 1024, 25, 5, 64, 1024, None),
+        ("hymba-edge", 2, 1024, 25, 5, 64, 1024, None),
+        ("hymba-global", 16, 2048, 25, 5, 64, None, None),
     ]
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
@@ -203,7 +230,7 @@ def parity() -> None:
             if got[0].abs().max().item() != 0.0:
                 raise RuntimeError(f"K2 {label} {dname}: the empty row is "
                                    f"not zero")
-            log(f"[parity] K2 decode_attention {label:8s} {dname:8s} "
+            log(f"[parity] K2 decode_attention {label:13s} {dname:8s} "
                 f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} "
                 f"max_abs_err={err:.3e} ok")
 
@@ -293,19 +320,62 @@ def parity_paged() -> None:
                 f"max_abs_err={err:.3e} ok, == K2 on the gathered view")
 
 
+def ssd_inputs(B, S, I, N, gen, strong_decay=False):
+    """a in (0, 1) (sigmoid of 2x a normal, or 0.01 everywhere: the regime
+    where a cumprod closed form underflows), b and h0 normal, float32."""
+    import torch
+    a = (torch.full((B, S, I, N), 0.01, device="cuda") if strong_decay else
+         torch.sigmoid(2.0 * _rand((B, S, I, N), torch.float32, gen)))
+    b = 0.5 * _rand((B, S, I, N), torch.float32, gen)
+    h0 = 0.2 * _rand((B, I, N), torch.float32, gen)
+    return a, b, h0
+
+
+def parity_ssd() -> None:
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    k5 = [  # (label, B, S, I, N, strong_decay): hymba-1.5b's I and N
+        ("decode-like", 1, 1, 3200, 16, False),
+        ("chunk", 1, 128, 3200, 16, False),
+        ("main", 1, 512, 3200, 16, False),
+        ("long", 1, 1024, 3200, 16, False),
+        ("batch4", 4, 256, 3200, 16, False),
+        ("strong-decay", 1, 512, 3200, 16, True),
+        ("ragged", 3, 77, 40, 16, False),
+    ]
+    for label, B, S, I, N, strong in k5:
+        a, b, h0 = ssd_inputs(B, S, I, N, gen, strong)
+        hs, hf = ops.ssd_scan(a, b, h0)
+        torch.cuda.synchronize()
+        want_hs, want_hf = ref.ssd_scan(a, b, h0)
+        errs = []
+        for name, got, want in (("hs", hs, want_hs), ("h_final", hf, want_hf)):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4,
+                                       msg=lambda m: f"K5 {label} {name}: {m}")
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"K5 {label} {name}: non-finite output")
+            errs.append((got - want).abs().max().item())
+        bitwise = torch.equal(hs, want_hs) and torch.equal(hf, want_hf)
+        log(f"[parity] K5 ssd_scan {label:12s} float32  B={B} S={S} I={I} "
+            f"N={N} max_abs_err={max(errs):.3e} bitwise={bitwise} ok")
+
+
 # ---------------------------------------------------------------- phase 4
 
 
-def smoke_model_vs_cpu() -> None:
-    """The smoke model on the card (kernels) and on the CPU (plain
-    versions), same weights, same requests: greedy ids must match and
-    logits agree to float32 tolerance."""
+def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
+                                             "decode_attention")) -> None:
+    """The smoke model of ``arch`` on the card (kernels) and on the CPU
+    (plain versions), same weights, same requests: greedy ids must match,
+    and the card's run must have launched each of ``kernels``."""
     import numpy as np
     import torch
     from repro_torch import configs
+    from repro_torch.kernels import ops
     from repro_torch.models import model_zoo
     from repro_torch.serving.engine import Endpoint
-    cfg = configs.get_smoke_config("stablelm-1.6b")
+    cfg = configs.get_smoke_config(arch)
     params_cpu = model_zoo.init(cfg, torch.Generator().manual_seed(0))
     params_gpu = {k: v.cuda() for k, v in params_cpu.items()}
     rng = np.random.default_rng(0)
@@ -315,6 +385,7 @@ def smoke_model_vs_cpu() -> None:
                for i, L in enumerate((5, 17, 17, 30))}
     streams = {}
     for dev, ep in eps.items():
+        ops.reset_launches()
         slots = [ep.try_claim() for _ in prompts]
         first = ep.prefill_batch({s: prompts[i] for i, s in enumerate(slots)})
         toks = dict(first)
@@ -324,21 +395,67 @@ def smoke_model_vs_cpu() -> None:
             for s, t in toks.items():
                 out[s].append(t)
         streams[dev] = out
+    launched = dict(ops.launches)                 # of the card's run
     if streams["cpu"] != streams["cuda"]:
-        raise RuntimeError("smoke model: greedy ids on the card differ from "
-                           "the CPU plain path")
-    log(f"[model] smoke model on cuda == cpu plain path: "
-        f"{sum(len(v) for v in streams['cuda'].values())} tokens identical")
+        raise RuntimeError(f"{arch} smoke model: greedy ids on the card "
+                           f"differ from the CPU plain path")
+    if any(launched[k] <= 0 or launched[k + "_plain"] for k in kernels):
+        raise RuntimeError(f"{arch} smoke model on the card: {launched}")
+    log(f"[model] {arch} smoke model on cuda == cpu plain path: "
+        f"{sum(len(v) for v in streams['cuda'].values())} tokens identical; "
+        f"card launches { {k: launched[k] for k in kernels} }")
 
 
 # ---------------------------------------------------------------- phase 5
+
+
+class recording:
+    """Within the block, record the shapes each kernel launcher is called
+    with (``shapes``: kernel -> shapes -> launches): (q, k) for K1 and K2,
+    (q, pages, tables) for K3, (a, b) for K5; and, given ``calls``, count
+    the model-level prefill and decode calls."""
+
+    def __init__(self, shapes: dict, calls: dict = None):
+        from repro_torch.kernels import decode_attention as _dec
+        from repro_torch.kernels import flash_attention as _fa
+        from repro_torch.kernels import ssd_scan as _ssd
+        from repro_torch.models import model_zoo
+        self.shapes, self.calls = shapes, calls
+        self.targets = [(_fa, "flash_attention", "K1", (0, 1)),
+                        (_dec, "decode_attention", "K2", (0, 1)),
+                        (_dec, "paged_decode_attention", "K3", (0, 1, 3)),
+                        (_ssd, "ssd_scan", "K5", (0, 1))]
+        if calls is not None:
+            self.targets += [(model_zoo, "prefill", "prefill", None),
+                             (model_zoo, "decode", "decode", None)]
+        self.saved = [getattr(m, name) for m, name, _, _ in self.targets]
+
+    def _wrap(self, fn, tag, args):
+        def rec(*a, **kw):
+            if args is None:
+                self.calls[tag] += 1
+            else:
+                key = tuple(tuple(a[i].shape) for i in args)
+                per = self.shapes.setdefault(tag, {})
+                per[key] = per.get(key, 0) + 1
+            return fn(*a, **kw)
+        return rec
+
+    def __enter__(self):
+        for (m, name, tag, args), fn in zip(self.targets, self.saved):
+            setattr(m, name, self._wrap(fn, tag, args))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, name, _, _), fn in zip(self.targets, self.saved):
+            setattr(m, name, fn)
+        return False
 
 
 def serve_full(cfg, params, shapes: dict) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.models import model_zoo
     from repro_torch.platform import (AutoscalingPolicy, Continuum,
                                       FunctionSpec, Request, TierConfig)
     nparams = sum(p.numel() for p in params.values())
@@ -356,44 +473,14 @@ def serve_full(cfg, params, shapes: dict) -> dict:
     if any(t.endpoints["stablelm"].params is not params for t in cc.tiers):
         raise RuntimeError("tiers do not share the one set of weights")
 
-    # record the shapes each kernel sees on the main path
-    from repro_torch.kernels import decode_attention as _dec
-    from repro_torch.kernels import flash_attention as _fa
-    fa_launch, dec_launch = _fa.flash_attention, _dec.decode_attention
-
-    def fa_rec(q, k, v, q_pos, kv_pos, **kw):
-        shapes.setdefault("K1", {}).setdefault(
-            (tuple(q.shape), tuple(k.shape)), 0)
-        shapes["K1"][(tuple(q.shape), tuple(k.shape))] += 1
-        return fa_launch(q, k, v, q_pos, kv_pos, **kw)
-
-    def dec_rec(q, k, v, q_pos, kv_pos, **kw):
-        key = (tuple(q.shape), tuple(k.shape))
-        shapes.setdefault("K2", {}).setdefault(key, 0)
-        shapes["K2"][key] += 1
-        return dec_launch(q, k, v, q_pos, kv_pos, **kw)
-
-    # and how many model-level prefill / decode calls carried them
     calls = {"prefill": 0, "decode": 0}
-    zoo_prefill, zoo_decode = model_zoo.prefill, model_zoo.decode
-
-    def prefill_rec(*a, **kw):
-        calls["prefill"] += 1
-        return zoo_prefill(*a, **kw)
-
-    def decode_rec(*a, **kw):
-        calls["decode"] += 1
-        return zoo_decode(*a, **kw)
-
     rng = np.random.default_rng(0)
     reqs = []
     rounds, rps_low, rps_high = 8, 2.0, 8.0
     ops.reset_launches()
-    _fa.flash_attention, _dec.decode_attention = fa_rec, dec_rec
-    model_zoo.prefill, model_zoo.decode = prefill_rec, decode_rec
     torch.cuda.synchronize()
     t_serve = time.perf_counter()
-    try:
+    with recording(shapes, calls):
         for rnd in range(rounds):
             frac = min(rnd / max(rounds * 0.5, 1), 1.0)
             n = int(round(rps_low + (rps_high - rps_low) * frac))
@@ -410,9 +497,6 @@ def serve_full(cfg, params, shapes: dict) -> dict:
                 f"steps={rec['steps']} R_t={rec['R']:.1f}%")
         drained = cc.drain()
         torch.cuda.synchronize()
-    finally:
-        _fa.flash_attention, _dec.decode_attention = fa_launch, dec_launch
-        model_zoo.prefill, model_zoo.decode = zoo_prefill, zoo_decode
     secs = time.perf_counter() - t_serve
     launches = dict(ops.launches)
 
@@ -529,7 +613,6 @@ def serve_paged(cfg, params, shapes: dict) -> dict:
     serving function-prompt traffic."""
     import numpy as np
     import torch
-    from repro_torch.kernels import decode_attention as _dec
     from repro_torch.kernels import ops
     from repro_torch.platform import (AutoscalingPolicy, Continuum,
                                       FunctionSpec, LinkSpec, Request,
@@ -555,20 +638,11 @@ def serve_paged(cfg, params, shapes: dict) -> dict:
     zipf = 1.0 / np.arange(1, 5) ** 1.1
     zipf /= zipf.sum()
     per_round = (2, 3, 4, 5, 6, 8, 10, 10)              # 48 requests
-    paged_launch = _dec.paged_decode_attention
-
-    def rec(q, k_pages, v_pages, page_tables, *a, **kw):
-        key = (tuple(q.shape), tuple(k_pages.shape), tuple(page_tables.shape))
-        shapes.setdefault("K3", {}).setdefault(key, 0)
-        shapes["K3"][key] += 1
-        return paged_launch(q, k_pages, v_pages, page_tables, *a, **kw)
-
     reqs = []
     ops.reset_launches()
-    _dec.paged_decode_attention = rec
     torch.cuda.synchronize()
     t_serve = time.perf_counter()
-    try:
+    with recording(shapes):
         for rnd, n in enumerate(per_round):
             for _ in range(n):
                 if rng.uniform() < 0.75:
@@ -586,8 +660,6 @@ def serve_paged(cfg, params, shapes: dict) -> dict:
                 f"steps={r['steps']} R_t={r['R']:.1f}%")
         drained = cc.drain()
         torch.cuda.synchronize()
-    finally:
-        _dec.paged_decode_attention = paged_launch
     secs = time.perf_counter() - t_serve
     launches = dict(ops.launches)
     served = {t.name: sum(r["tiers"][t.name] for r in cc.log)
@@ -627,6 +699,184 @@ def serve_paged(cfg, params, shapes: dict) -> dict:
     return launches
 
 
+HYMBA_PROMPTS = (64, 100, 128, 256, 384, 512)   # lengths the SSM scan admits
+HYMBA_LONG = 1024                               # past the 1024-token window
+
+
+def hymba_model():
+    """hymba-1.5b at full width, bf16, seeded random weights drawn on the
+    card."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+    cfg = configs.get_config("hymba-1.5b")
+    params = model_zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return cfg, params
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Median host-clock time of ``fn`` (work that ends in a sync)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _device_ms(fn, n: int):
+    """Device time of one call of ``fn`` under ``torch.profiler`` (mean of
+    ``n`` calls): (total ms, {kernel name: ms})."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / n)
+    if not by_name:
+        raise RuntimeError("the profiler recorded no device time")
+    return sum(by_name.values()), by_name
+
+
+def serve_hymba(cfg, params, shapes: dict, card: str) -> dict:
+    """Phase 5d: the hymba main path through the continuum, then one cloud
+    endpoint's prefill and decode step times and busy share."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.platform import (AutoscalingPolicy, Continuum,
+                                      FunctionSpec, Request, TierConfig)
+    nparams = sum(p.numel() for p in params.values())
+    log(f"[hymba] hymba-1.5b full width: {cfg.num_layers} layers "
+        f"(global {cfg.global_layers}, window {cfg.sliding_window}), "
+        f"d={cfg.d_model}, heads={cfg.num_heads}/{cfg.num_kv_heads}, "
+        f"head_dim={cfg.head_dim}, d_ff={cfg.d_ff}, "
+        f"ssm I={cfg.ssm_d_inner} N={cfg.ssm_state}, vocab={cfg.vocab_size}, "
+        f"{nparams / 1e9:.3f}B params bf16")
+    max_len, max_new = 2048, 32
+    cc = Continuum(edge=TierConfig(slots=2, max_len=max_len),
+                   cloud=TierConfig(slots=16, max_len=max_len,
+                                    extra_latency_s=0.02),
+                   policy="auto", seed=0, device="cuda")
+    cc.deploy(FunctionSpec(name="hymba", arch="hymba-1.5b",
+                           autoscaling=AutoscalingPolicy()), cfg, params)
+    rng = np.random.default_rng(11)
+    per_round = (2, 3, 4, 5, 6, 6, 7, 7)                # 40 requests
+    long_rids = {3, 12, 22, 33}                         # 1024-token prompts
+    calls = {"prefill": 0, "decode": 0}
+    reqs = []
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter()
+    with recording(shapes, calls):
+        for rnd, n in enumerate(per_round):
+            for _ in range(n):
+                L = (HYMBA_LONG if len(reqs) in long_rids
+                     else int(rng.choice(HYMBA_PROMPTS)))
+                toks = rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+                req = Request(rid=len(reqs), tokens=toks, max_new=max_new)
+                reqs.append(req)
+                if not cc.submit("hymba", req):
+                    raise RuntimeError(f"hymba request {req.rid} rejected")
+            rec = cc.tick()
+            log(f"[hymba] round={rnd} submitted={n} "
+                f"edge={rec['tiers']['edge']} cloud={rec['tiers']['cloud']} "
+                f"steps={rec['steps']} R_t={rec['R']:.1f}%")
+        drained = cc.drain()
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t_serve
+    launches = dict(ops.launches)
+
+    served = {t.name: sum(r["tiers"][t.name] for r in cc.log)
+              for t in cc.tiers}
+    if sum(served.values()) != len(reqs) or any(r.failed for r in reqs):
+        raise RuntimeError(f"hymba: served {served} of {len(reqs)}")
+    for r in reqs:
+        if (r.output is None or r.output.shape != (max_new,)
+                or r.output.min() < 0 or r.output.max() >= cfg.vocab_size):
+            raise RuntimeError(f"hymba request {r.rid}: bad output "
+                               f"{r.output}")
+    if min(launches[k] for k in ("flash_attention", "decode_attention",
+                                 "ssd_scan")) <= 0:
+        raise RuntimeError(f"hymba path skipped a kernel: {launches}")
+    if any(launches[k] for k in launches if k.endswith("_plain")) or \
+            launches["paged_decode_attention"]:
+        raise RuntimeError(f"hymba path ran a plain version: {launches}")
+    if launches["ssd_scan"] != cfg.num_layers * calls["prefill"]:
+        raise RuntimeError(f"hymba: {launches['ssd_scan']} K5 launches for "
+                           f"{calls['prefill']} prefill calls")
+    widths = {k[1][1] for k in shapes["K2"]}
+    if widths != {cfg.sliding_window, max_len}:
+        raise RuntimeError(f"hymba: K2 read caches of widths {widths}")
+    tokens = len(reqs) * max_new
+    log(f"[hymba] served {len(reqs)}/{len(reqs)} edge={served['edge']} "
+        f"cloud={served['cloud']} drain_ticks={drained} tokens={tokens} "
+        f"wall={secs:.2f}s tokens_per_s={tokens / secs:.1f} "
+        f"final_R_t={cc.log[-1]['R']:.2f}% launches={launches}")
+    log(f"[hymba] {calls['prefill']} prefill calls, {calls['decode']} decode "
+        f"steps: K5 launches per prefill "
+        f"{launches['ssd_scan'] / max(calls['prefill'], 1):g}, K1 per "
+        f"prefill {launches['flash_attention'] / max(calls['prefill'], 1):g}"
+        f", K2 per decode step "
+        f"{launches['decode_attention'] / max(calls['decode'], 1):g}")
+    for k in ("K1", "K2", "K5"):
+        log(f"[hymba] {k} shapes -> launches: "
+            f"{ {str(s): n for s, n in sorted(shapes[k].items())} }")
+
+    # one cloud endpoint, now idle: bytes per row, prefill, decode step
+    ep = cc.tiers[-1].endpoints["hymba"]
+    ssm_bytes = sum(ep._row_init[k].numel() * ep._row_init[k].element_size()
+                    for k in ("h", "conv"))
+    for L in (512, HYMBA_LONG + max_new):
+        row = ep.cache_nbytes_per_row(L)
+        log(f"[hymba] bytes per row at position {L}: {row:.0f} (KV "
+            f"{row - ssm_bytes:.0f}, SSM state {ssm_bytes})")
+    probe = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+    s0 = ep.try_claim()
+
+    def prefill():
+        ep.prefill_batch({s0: probe})
+
+    prefill()                                           # warm-up
+    prefill_ms = _wall_ms(prefill, 5)
+    prefill_dev = _device_ms(prefill, 3)
+    prompts = {s0: probe}
+    while ep.active < ep.slots:
+        prompts[ep.try_claim()] = rng.integers(
+            0, cfg.vocab_size, int(rng.choice(HYMBA_PROMPTS))).astype(np.int32)
+    toks = ep.prefill_batch(prompts)
+
+    def step():
+        nonlocal toks
+        toks = ep.decode_all(toks)
+
+    for _ in range(3):
+        step()                                          # warm-up
+    decode_ms = _wall_ms(step, 8)
+    decode_dev = _device_ms(step, 8)
+    for s in list(prompts):
+        ep.release(s)
+    for what, wall, (dev, by_name) in (
+            ("prefill of one 512-token prompt", prefill_ms, prefill_dev),
+            (f"decode step of {ep.slots} rows", decode_ms, decode_dev)):
+        log(f"[hymba] cloud endpoint, {what}: {wall:.3f} ms wall (median), "
+            f"device time {dev:.4f} ms (profiler), busy share "
+            f"{100 * dev / wall:.1f}% ({card})")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"[hymba]   {ms:8.4f} ms a call  {name[:90]}")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -648,35 +898,36 @@ def _time_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def timing(shapes: dict, launches: dict) -> list:
+def _k1_row(key, launches, gen, flush, window=None) -> dict:
+    """K1 timed at one (q, k) shape of a prefill (plain causal, with the
+    window given), beside its bound, plain version and SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    rows = []
-
-    # K1 at the main path's largest prefill bucket
-    (qs, ks) = max(shapes["K1"], key=lambda s: (s[0][1], shapes["K1"][s]))
-    B, S, Hq, D = qs
-    T, Hkv = ks[1], ks[2]
+    (B, S, Hq, D), (_, T, Hkv, _) = key
     q, k, v, qp, kp = prefill_inputs(B, S, T, Hq, Hkv, D, torch.bfloat16, gen)
-    got = ops.flash_attention(q, k, v, qp, kp)
-    want = ref.flash_attention(q, k, v, qp, kp)
+    got = ops.flash_attention(q, k, v, qp, kp, window=window)
+    want = ref.flash_attention(q, k, v, qp, kp, window=window)
     err = check_close("K1 timing inputs", got, want, "bfloat16")
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ms = _time_ms(lambda: ops.flash_attention(q, k, v, qp, kp), flush)
-    plain = _time_ms(lambda: ref.flash_attention(q, k, v, qp, kp), flush)
+    d = qp[:, :, None] - kp[:, None, :]
+    ok = (d >= 0) & (kp[:, None, :] >= 0)         # allowed (q, kv) pairs
+    if window is not None:
+        ok &= d < window
+    ms = _time_ms(lambda: ops.flash_attention(q, k, v, qp, kp,
+                                              window=window), flush)
+    plain = _time_ms(lambda: ref.flash_attention(q, k, v, qp, kp,
+                                                 window=window), flush)
     gqa = {"enable_gqa": True} if Hq != Hkv else {}
+    mask = (dict(is_causal=True) if window is None or S <= window
+            else dict(attn_mask=ok[:, None]))
     lib = _time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True, **gqa), flush)
-    pairs = int(((qp[:, :, None] >= kp[:, None, :]) & (kp[:, None, :] >= 0))
-                .sum().item())                     # allowed (q, kv) pairs
-    flops = 4.0 * pairs * Hq * D                   # QK^T and P.V
+        qh, kh, vh, **mask, **gqa), flush)
+    flops = 4.0 * int(ok.sum().item()) * Hq * D    # QK^T and P.V
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2 \
         + (qp.numel() + kp.numel()) * 4
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    rows.append({
+    return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",
@@ -684,34 +935,45 @@ def timing(shapes: dict, launches: dict) -> list:
         "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": lib,
-        "shape": f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16"})
+        "shape": f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16"
+                 + ("" if window is None else f" window={window}")}
 
-    # K2 at the cloud tier's decode batch, cache filled as on the main path
-    (qs, ks) = max(shapes["K2"], key=lambda s: (s[0][0], shapes["K2"][s]))
-    B, Hq, D = qs
-    T, Hkv = ks[1], ks[2]
+
+def _k2_row(key, launches, gen, flush, prompts, window=None):
+    """K2 timed at one (q, k) shape of a decode step, row b's cache
+    filled with a prompt drawn from ``prompts`` plus 1..32 new tokens, as
+    on the main path.  Returns (row, the fill)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    (B, Hq, D), (_, T, Hkv, _) = key
     cpu = torch.Generator().manual_seed(2)
-    fill = (torch.randint(64, 513, (B,), generator=cpu)   # prompt + new
+    fill = (prompts(B, cpu)                               # prompt + new
             + torch.randint(1, 33, (B,), generator=cpu)).clamp(max=T).tolist()
     q, k, v, qp, kp = decode_inputs(B, T, Hq, Hkv, D, torch.bfloat16, gen,
                                     fill=fill)
-    got = ops.decode_attention(q, k, v, qp, kp)
-    want = ref.decode_attention(q, k, v, qp, kp)
+    got = ops.decode_attention(q, k, v, qp, kp, window=window)
+    want = ref.decode_attention(q, k, v, qp, kp, window=window)
     err = check_close("K2 timing inputs", got, want, "bfloat16")
     qh = q[:, :, None].contiguous()                       # (B,H,1,D)
     kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
-    mask = ((kp >= 0) & (kp <= qp[:, None]))[:, None, None, :]
-    ms = _time_ms(lambda: ops.decode_attention(q, k, v, qp, kp), flush)
-    plain = _time_ms(lambda: ref.decode_attention(q, k, v, qp, kp), flush)
+    ok = (kp >= 0) & (kp <= qp[:, None])
+    if window is not None:
+        ok &= qp[:, None] - kp < window
+    mask = ok[:, None, None, :]
+    ms = _time_ms(lambda: ops.decode_attention(q, k, v, qp, kp,
+                                               window=window), flush)
+    plain = _time_ms(lambda: ref.decode_attention(q, k, v, qp, kp,
+                                                  window=window), flush)
     gqa = {"enable_gqa": True} if Hq != Hkv else {}
     lib = _time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, **gqa), flush)
-    valid = int(((kp >= 0) & (kp <= qp[:, None])).sum().item())
+    valid = int(ok.sum().item())
     nbytes = (q.numel() + got.numel()) * 2 + valid * Hkv * D * 2 * 2 \
         + (qp.numel() + kp.numel()) * 4            # only live slots are read
     flops = 4.0 * valid * Hq * D
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    rows.append({
+    return {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:189",
@@ -720,7 +982,72 @@ def timing(shapes: dict, launches: dict) -> list:
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": lib,
         "shape": f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 "
-                 f"live_slots={valid}"})
+                 f"live_slots={valid}"
+                 + ("" if window is None else f" window={window}")}, fill
+
+
+def _k5_row(key, launches, gen, flush) -> dict:
+    """K5 timed at one (a, b) shape of a prefill, beside its bound and
+    its plain version; no single PyTorch call computes the recurrence."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    (B, S, I, N), _ = key
+    a, b, h0 = ssd_inputs(B, S, I, N, gen)
+    hs, hf = ops.ssd_scan(a, b, h0)
+    want_hs, want_hf = ref.ssd_scan(a, b, h0)
+    torch.testing.assert_close(hs, want_hs, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(hf, want_hf, atol=1e-4, rtol=1e-4)
+    err = max((hs - want_hs).abs().max().item(),
+              (hf - want_hf).abs().max().item())
+    ms = _time_ms(lambda: ops.ssd_scan(a, b, h0), flush)
+    plain = _time_ms(lambda: ref.ssd_scan(a, b, h0), flush, reps=10,
+                     warmup=2)
+    nbytes = (a.numel() + b.numel() + hs.numel()
+              + h0.numel() + hf.numel()) * 4     # read a, b, h0; write hs, h
+    flops = 2.0 * a.numel()                      # a*h + b per element
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:58",
+        "launches": launches["ssd_scan"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        "library": "none (no PyTorch call computes the recurrence)",
+        "shape": f"B={B} S={S} I={I} N={N} float32"}
+
+
+def _stablelm_prompts(n, gen):
+    import torch
+    return torch.randint(64, 513, (n,), generator=gen)
+
+
+def _hymba_prompts(n, gen):
+    import torch
+    lens = torch.tensor(HYMBA_PROMPTS)
+    return lens[torch.randint(0, len(lens), (n,), generator=gen)]
+
+
+def timing(shapes: dict, launches: dict, hy_shapes: dict,
+           hy_launches: dict, window: int) -> tuple:
+    """Phase 6.  Returns (the kernels' rows: K1, K2 at stablelm's main
+    path, K3 at the paged tier's, K5 at hymba's; K1 and K2 at hymba's
+    shapes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    rows = []
+
+    # K1 at the main path's largest prefill bucket
+    rows.append(_k1_row(max(shapes["K1"], key=lambda s: (
+        s[0][1], shapes["K1"][s])), launches, gen, flush))
+    # K2 at the cloud tier's decode batch, cache filled as on the main path
+    row, fill = _k2_row(max(shapes["K2"], key=lambda s: (
+        s[0][0], shapes["K2"][s])), launches, gen, flush, _stablelm_prompts)
+    rows.append(row)
 
     # K3 at the paged cloud tier's decode batch: the same live slots as
     # K2's row (same fill), pages shuffled over a pool with spare pages
@@ -774,11 +1101,34 @@ def timing(shapes: dict, launches: dict) -> list:
         "library": "2x index_select + scaled_dot_product_attention",
         "shape": f"B={B} ppr={ppr} page={page} Hq={Hq} Hkv={Hkv} D={D} "
                  f"bf16 live_slots={valid} pool_pages={kpg.shape[0]}"})
-    for r in rows:
-        log(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
-    return rows
+    # K5 at the shape the hymba main path launched it at most
+    k5_key = max(hy_shapes["K5"], key=lambda s: (hy_shapes["K5"][s],
+                                                 s[0][1]))
+    rows.append(_k5_row(k5_key, hy_launches, gen, flush))
+
+    # K1 and K2 at hymba's shapes: the longest prefill through a window
+    # layer, and the cloud tier's decode batch on the rolling and the
+    # global caches
+    hy_rows = [_k1_row(max(hy_shapes["K1"], key=lambda s: (
+        s[0][1], hy_shapes["K1"][s])), hy_launches, gen, flush, window)]
+    for w in (window, None):
+        width = w or max(s[1][1] for s in hy_shapes["K2"])
+        key = max((s for s in hy_shapes["K2"] if s[1][1] == width),
+                  key=lambda s: (s[0][0], hy_shapes["K2"][s]))
+        hy_rows.append(_k2_row(key, hy_launches, gen, flush, _hymba_prompts,
+                               w)[0])
+    # and K5 at one 512-token prompt, whatever the path launched most
+    (_, _, I, N), _ = k5_key
+    hy_rows.append(_k5_row(((1, 512, I, N), None), hy_launches, gen, flush))
+    for tag, rs in (("time", rows), ("time-hymba", hy_rows)):
+        for r in rs:
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
+            log(f"[{tag}] {r['name']} {r['shape']}: kernel {r['ms']:.4f} "
+                f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+                f"{r['plain_ms']:.4f} ms, library {lib}, launches "
+                f"{r['launches']}")
+    return rows, hy_rows
 
 
 # ---------------------------------------------------------------- main
@@ -805,14 +1155,29 @@ def main() -> int:
     log(f"[build] kernels built in {build_kernels():.1f}s")
     parity()
     parity_paged()
-    smoke_model_vs_cpu()
+    parity_ssd()
+    smoke_model_vs_cpu("stablelm-1.6b")
+    smoke_model_vs_cpu("hymba-1.5b", ("flash_attention", "decode_attention",
+                                      "ssd_scan"))
     cfg, params = full_model()
     shapes: dict = {}
     launches = serve_full(cfg, params, shapes)
     paged_vs_dense(cfg, params, card)
-    launches.update({k: v for k, v in serve_paged(cfg, params, shapes).items()
+    paged_shapes: dict = {}
+    launches.update({k: v for k, v in serve_paged(cfg, params,
+                                                  paged_shapes).items()
                      if k.startswith("paged_")})
-    rows = timing(shapes, launches)
+    shapes["K3"] = paged_shapes["K3"]
+    del params
+    torch.cuda.empty_cache()
+    hcfg, hparams = hymba_model()
+    hy_shapes: dict = {}
+    hy_launches = serve_hymba(hcfg, hparams, hy_shapes, card)
+    del hparams
+    torch.cuda.empty_cache()
+    rows, hy_rows = timing(shapes, launches, hy_shapes, hy_launches,
+                           hcfg.sliding_window)
+    log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

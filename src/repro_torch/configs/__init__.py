@@ -1,8 +1,9 @@
 """Architecture registry of the port.
 
-Only the dense stablelm-1.6b is ported so far.  Every other architecture
-of the reference registry raises ``NotImplementedError`` naming the
-ROADMAP item that will port its family.
+The dense stablelm-1.6b and the hybrid hymba-1.5b are ported.  Every
+other architecture of the reference registry raises
+``NotImplementedError`` naming the ROADMAP item that will port its
+family.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from repro_torch.models.common import ModelConfig
 
 _MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 #: the reference's other architectures, by the ROADMAP item that ports them
@@ -26,7 +28,6 @@ _LATER = {
     "qwen2-moe-a2.7b": "MoE",
     "mixtral-8x7b": "MoE",
     "rwkv6-7b": "rwkv6 with kernel K4",
-    "hymba-1.5b": "hymba with kernel K5",
 }
 
 ARCHS: Tuple[str, ...] = tuple(_MODULES)

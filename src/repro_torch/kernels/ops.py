@@ -1,18 +1,20 @@
-"""Dispatch over the attention kernels, by the device of the tensors.
+"""Dispatch over the kernels, by the device of the tensors.
 
 The counterpart of ``repro/kernels/ops.py``.  A CUDA tensor always goes
 through the hand-written kernel (K1 ``flash_attention.cu``; K2 and K3,
-dense and paged decode, ``decode_attention.cu``); a CPU tensor goes
-through the plain PyTorch version in :mod:`repro_torch.kernels.ref`.  There is no switch and no
+dense and paged decode, ``decode_attention.cu``; K5, the selective-SSM
+scan, ``ssd_scan.cu``); a CPU tensor goes through the plain PyTorch
+version in :mod:`repro_torch.kernels.ref`.  There is no switch and no
 fallback: a kernel that cannot build or launch raises.
 
 ``launches`` counts, per kernel and per plain version, the calls that
 actually ran it (plain integers; :func:`reset_launches` zeroes them), so
 a run can show which path the model took.
 
-K1 sits inside a :class:`torch.autograd.Function` whose backward
+K1 and K5 sit inside a :class:`torch.autograd.Function` whose backward
 recomputes through the plain version, as ``custom_vjp`` does in the
-reference (``repro/kernels/ops.py:39-62``); serving never takes it.
+reference (``repro/kernels/ops.py:39-62, 114-131``); serving never takes
+it.
 """
 
 from __future__ import annotations
@@ -24,11 +26,17 @@ import torch
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
+
+#: the reference kernel's time chunk (``repro/kernels/ops.py:116``); the
+#: port keeps its length rule, not its chunking
+SSD_CHUNK = 128
 
 launches: Dict[str, int] = {
     "flash_attention": 0, "flash_attention_plain": 0,
     "decode_attention": 0, "decode_attention_plain": 0,
     "paged_decode_attention": 0, "paged_decode_attention_plain": 0,
+    "ssd_scan": 0, "ssd_scan_plain": 0,
 }
 
 
@@ -117,3 +125,42 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, q_pos,
     return ref.paged_decode_attention(q, k_pages, v_pages, page_tables,
                                       q_pos, kv_pos_pages, window=window,
                                       softcap=softcap)
+
+
+def _ssd_forward(a, b, h0):
+    if _on_cuda(a, "ssd_scan"):
+        out = _ssd.ssd_scan(a, b, h0)
+        launches["ssd_scan"] += 1
+        return out
+    launches["ssd_scan_plain"] += 1
+    return ref.ssd_scan(a, b, h0)
+
+
+class _SsdScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        ctx.save_for_backward(a, b, h0)
+        return _ssd_forward(a, b, h0)
+
+    @staticmethod
+    def backward(ctx, g_hs, g_h):
+        a, b, h0 = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_() for t in (a, b, h0)]
+            hs, h = ref.ssd_scan(*xs)
+            return torch.autograd.grad((hs, h), xs, (g_hs, g_h))
+
+
+def ssd_scan(a, b, h0):
+    """Selective-SSM scan h_t = a_t*h_{t-1} + b_t.  a, b: (B,S,I,N) float32;
+    h0: (B,I,N) float32.  Returns (hs (B,S,I,N), h_final (B,I,N)), float32.
+
+    Raises the reference's ``ValueError`` unless S <= 128 or S % 128 == 0
+    (its kernel's chunk, ``repro/kernels/ssd_scan.py:64-68``), on every
+    device, so the port accepts exactly the prompt lengths the reference's
+    kernel path does."""
+    S = a.shape[1]
+    chunk = min(SSD_CHUNK, S)
+    if chunk and S % chunk:
+        raise ValueError(f"seq len {S} is not divisible by chunk {chunk}")
+    return _SsdScan.apply(a, b, h0)

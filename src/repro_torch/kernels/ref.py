@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels.
 
-The counterpart of ``repro/kernels/ref.py:18-51``: the O(S^2) materialized
-score oracle with the positional mask, float32 accumulation and fully
-masked rows zeroed.  The CPU tests run these; on the card
+The counterpart of ``repro/kernels/ref.py``: the O(S^2) materialized
+attention score oracle with the positional mask, float32 accumulation and
+fully masked rows zeroed (``:18-51``), and the sequential selective-SSM
+recurrence (``:69-80``).  The CPU tests run these; on the card
 ``chip_smoke.py`` holds the CUDA kernels against them.  Nothing on the
 main path calls them when the tensors live on a card.
 """
@@ -78,3 +79,19 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, q_pos,
     kv_pos = kv_pos_pages[idx].reshape(B, ppr * page)
     return decode_attention(q, k, v, q_pos, kv_pos, window=window,
                             softcap=softcap)
+
+
+def ssd_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """Diagonal linear recurrence h_t = a_t*h_{t-1} + b_t (selective SSM),
+    one step at a time in float32.  a, b: (B,S,I,N); h0: (B,I,N).
+    Returns (hs (B,S,I,N) float32, h_final (B,I,N) float32).
+
+    The product and the sum are two separate operations (never fused
+    into one multiply-add), as the CUDA kernel rounds them."""
+    a, b = a.float(), b.float()
+    h = h0.float()
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

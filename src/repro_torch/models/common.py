@@ -26,8 +26,8 @@ Params = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters (the dense-family subset of the
-    reference's config) with torch dtypes."""
+    """Architecture hyperparameters (the subset of the reference's config
+    that the ported families read) with torch dtypes."""
 
     name: str = "model"
     family: str = "dense"
@@ -42,7 +42,13 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     sliding_window: Optional[int] = None
+    global_layers: Tuple[int, ...] = ()  # full-attention layers (hymba)
     attn_logit_softcap: Optional[float] = None
+
+    # selective SSM (hymba)
+    ssm_state: int = 0               # mamba N (hymba: 16)
+    ssm_expand: int = 2              # d_inner = expand * d_model
+    ssm_conv: int = 4                # depthwise conv width
 
     activation: str = "swiglu"       # the only one ported
     norm_eps: float = 1e-5
@@ -51,6 +57,10 @@ class ModelConfig:
 
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     def param_count(self) -> int:
         """Total parameters (exact, from the spec table)."""
@@ -65,7 +75,7 @@ class ParamSpec:
 
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"             # normal | zeros | ones
+    init: str = "normal"             # normal | zeros | ones | const
     scale: float = 1.0
 
     def __post_init__(self):
@@ -89,6 +99,8 @@ def _init_leaf(spec: ParamSpec, dtype: torch.dtype,
         return torch.zeros(spec.shape, dtype=dtype, device=dev)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=dev)
+    if spec.init == "const":        # constant fill with value = scale
+        return torch.full(spec.shape, spec.scale, dtype=dtype, device=dev)
     if spec.init != "normal":
         raise ValueError(f"unknown initializer {spec.init!r}")
     # fan-in scaled normal over the per-layer shape (as the reference)
@@ -162,11 +174,10 @@ def norm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 def activate(cfg: ModelConfig, gate: torch.Tensor,
              up: Optional[torch.Tensor]) -> torch.Tensor:
     """MLP nonlinearity: swiglu, silu(gate)*up.  The other activations
-    belong to families this package does not port yet."""
+    belong to configurations this package does not port yet."""
     if cfg.activation != "swiglu":
         raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported; only the dense "
-            f"swiglu family (stablelm-1.6b) is")
+            f"activation {cfg.activation!r} is not ported; only swiglu is")
     if up is None:
         raise ValueError("swiglu activation requires the `up` projection")
     return F.silu(gate) * up

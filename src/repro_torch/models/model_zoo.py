@@ -1,4 +1,4 @@
-"""Uniform model API over the ported families (dense only so far).
+"""Uniform model API over the ported families, keyed by ``cfg.family``.
 
 The counterpart of ``repro/models/model_zoo.py``::
 
@@ -10,29 +10,47 @@ The counterpart of ``repro/models/model_zoo.py``::
     init_cache(cfg, batch, max_len, device) -> cache
     init_paged_pool(cfg, total_pages, page_size, device) -> page pool
 
-Other families raise ``NotImplementedError`` until their slice is ported.
+``dense`` and ``hymba`` are ported; the other families raise
+``NotImplementedError`` until their slice is.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.models import common, transformer
+from repro_torch.models import common, hymba, transformer
 from repro_torch.models.common import ModelConfig, Params
 
 
-def _dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+class Family(NamedTuple):
+    layer_fn: transformer.LayerFn
+    table_fn: Callable[[ModelConfig], Dict[str, common.ParamSpec]]
+    cache_fn: Callable[..., Dict[str, torch.Tensor]]
+    #: None where the family's paged tier is not ported
+    paged_pool_fn: Optional[Callable[..., Dict[str, torch.Tensor]]]
+
+
+_FAMILIES = {
+    "dense": Family(transformer.dense_layer, transformer.param_table,
+                    transformer.init_cache, transformer.init_paged_pool),
+    "hymba": Family(hymba.hymba_layer, hymba.param_table, hymba.init_cache,
+                    None),
+}
+
+
+def family(cfg: ModelConfig) -> Family:
+    fam = _FAMILIES.get(cfg.family)
+    if fam is None:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            f"queue 1); only 'dense' is")
+            f"queue 1); ported: {sorted(_FAMILIES)}")
+    return fam
 
 
 def param_table(cfg: ModelConfig) -> Dict[str, common.ParamSpec]:
-    _dense(cfg)
-    return transformer.param_table(cfg)
+    return family(cfg).table_fn(cfg)
 
 
 def init(cfg: ModelConfig, generator: torch.Generator) -> Params:
@@ -41,23 +59,26 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> Params:
 
 
 def prefill(cfg: ModelConfig, params: Params, batch, cache, lengths=None):
-    _dense(cfg)
-    return transformer.prefill(cfg, params, batch, cache, lengths=lengths)
+    return transformer.prefill(cfg, params, batch, cache, lengths=lengths,
+                               layer_fn=family(cfg).layer_fn)
 
 
 def decode(cfg: ModelConfig, params: Params, cache, tokens, t, active=None,
            page_tables=None):
-    _dense(cfg)
     return transformer.decode_step(cfg, params, cache, tokens, t, active,
-                                   page_tables)
+                                   page_tables, family(cfg).layer_fn)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    _dense(cfg)
-    return transformer.init_cache(cfg, batch, max_len, device)
+    return family(cfg).cache_fn(cfg, batch, max_len, device)
 
 
 def init_paged_pool(cfg: ModelConfig, total_pages: int, page_size: int,
                     device=None):
-    _dense(cfg)
-    return transformer.init_paged_pool(cfg, total_pages, page_size, device)
+    fn = family(cfg).paged_pool_fn
+    if fn is None:
+        raise NotImplementedError(
+            f"the paged pool of the {cfg.family!r} family is not ported "
+            f"(ROADMAP.md, queue 1: the reference pages its global layers "
+            f"and keeps rolling-window rows and recurrent state per slot)")
+    return fn(cfg, total_pages, page_size, device)

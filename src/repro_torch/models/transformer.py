@@ -1,11 +1,23 @@
-"""Decoder-only dense transformer (the dense family of the reference).
+"""Decoder-only transformer stack (the dense family of the reference, and
+the layer loop, attention and caches that other families reuse).
 
 The counterpart of ``repro/models/transformer.py``.  Parameters are the
 reference's flat dict with per-layer weights stacked on a leading
-``layers`` axis; the layer stack is a Python loop over that axis (the
-reference's ``lax.scan``).  The KV cache keeps the reference's scan
-layout: ``{"k", "v": (L, B, W, Hkv, Dh), "pos": (L, B, W) int32}`` with
-``pos = -1`` marking an empty slot.
+``layers`` axis; the layer stack is a Python loop over that axis, calling
+the family's layer function (``dense_layer`` here; ``hymba.hymba_layer``)
+with the layer's index.
+
+The KV cache is a flat dict of stacked leaves, each with the slot (batch)
+axis at 1.  Layers whose attention caches have the same width share one
+stack: ``{"k", "v": (L, B, W, Hkv, Dh), "pos": (L, B, W) int32}`` when
+every layer has the same window (the reference's scan layout), else one
+stack per kind, ``"window/k"``... over the sliding-window layers (rolling
+width ``min(window, max_len)``) and ``"global/k"``... over the global ones
+(width ``max_len``), where the reference keeps a list of per-layer dicts.
+A leaf named ``group/key`` stacks the layers of its group, a bare name
+every layer (a family's per-layer state, such as hymba's ``h`` and
+``conv``); :func:`layer_caches` gives each layer its slices.  ``pos = -1``
+marks an empty slot.
 
 Unlike the reference, which returns a new cache, the port writes the
 cache **in place** (a full-width cache is gigabytes; copying it per step
@@ -29,7 +41,7 @@ cache; the serving engine copies it into pages.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -103,6 +115,16 @@ def param_table(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 # --------------------------------------------------------------------------
 
 
+def _window_for_layer(cfg: ModelConfig,
+                      layer_idx: Optional[int]) -> Optional[int]:
+    """Static per-layer sliding window (hymba: some layers are global)."""
+    if cfg.sliding_window is None:
+        return None
+    if layer_idx is not None and layer_idx in cfg.global_layers:
+        return None
+    return cfg.sliding_window
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (d, *out) -> (..., *out), in x.dtype."""
     d = w.shape[0]
@@ -164,9 +186,10 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     positions: torch.Tensor, cache: Optional[Cache],
                     mode: str, rows: Optional[torch.Tensor] = None,
                     prefix: str = "attn/", rope=None,
-                    paging: Optional["Paging"] = None) -> torch.Tensor:
+                    paging: Optional["Paging"] = None,
+                    layer_idx: Optional[int] = None) -> torch.Tensor:
     """Pre-norm attention residual branch (writes ``cache`` in place)."""
-    window = cfg.sliding_window
+    window = _window_for_layer(cfg, layer_idx)
     h = apply_norm(cfg, p, prefix + "norm", x)
     q, k, v = qkv_project(cfg, p, h, positions, prefix, rope)
     if mode == "decode" and paging is not None:
@@ -204,29 +227,35 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
 def dense_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Cache], mode: str,
                 rows: Optional[torch.Tensor] = None,
-                rope=None, paging: Optional["Paging"] = None
-                ) -> torch.Tensor:
+                rope=None, paging: Optional["Paging"] = None,
+                layer_idx: Optional[int] = None) -> torch.Tensor:
     x = x + attention_block(cfg, p, x, positions, cache, mode, rows,
-                            rope=rope, paging=paging)
+                            rope=rope, paging=paging, layer_idx=layer_idx)
     return x + mlp_block(cfg, p, x)
+
+
+#: a family's layer function: (cfg, p, x, positions, layer_cache, mode,
+#: rows, rope, paging, layer_idx) -> x
+LayerFn = Callable[..., torch.Tensor]
 
 
 def forward(cfg: ModelConfig, params: Params, embeds: torch.Tensor,
             positions: torch.Tensor, cache: Optional[Cache], mode: str,
             rows: Optional[torch.Tensor] = None,
-            paging: Optional["Paging"] = None) -> torch.Tensor:
+            paging: Optional["Paging"] = None,
+            layer_fn: LayerFn = dense_layer) -> torch.Tensor:
     """Run the layer stack (a loop over the stacked ``layers`` axis);
-    layer i reads and writes slice i of every cache leaf (of the page
-    pool, with ``paging``)."""
+    layer i reads and writes its slices of every cache leaf
+    (:func:`layer_caches`; of the page pool, with ``paging``)."""
     stacked, _ = layer_slice(params)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    views = layer_caches(cfg, cache) if cache is not None else None
     x = embeds
     for i in range(cfg.num_layers):
         layer_params = {k: v[i] for k, v in stacked.items()}
-        layer_cache = ({k: v[i] for k, v in cache.items()}
-                       if cache is not None else None)
-        x = dense_layer(cfg, layer_params, x, positions, layer_cache, mode,
-                        rows, rope, paging)
+        x = layer_fn(cfg, layer_params, x, positions,
+                     views[i] if views is not None else None, mode, rows,
+                     rope, paging, i)
     return x
 
 
@@ -258,18 +287,52 @@ def output_head(cfg: ModelConfig, params: Params,
     return x.float() @ w.float().t()
 
 
+def cache_groups(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """The layers that share one attention-cache stack, by key prefix:
+    ``""`` when every layer has the same window, else ``"window/"`` (the
+    sliding-window layers) and ``"global/"`` (the full-attention ones)."""
+    by_window: Dict[Optional[int], List[int]] = {}
+    for i in range(cfg.num_layers):
+        by_window.setdefault(_window_for_layer(cfg, i), []).append(i)
+    if len(by_window) == 1:
+        return {"": tuple(range(cfg.num_layers))}
+    return {("global/" if w is None else "window/"): tuple(layers)
+            for w, layers in by_window.items()}
+
+
+def layer_caches(cfg: ModelConfig, cache: Cache) -> List[Cache]:
+    """Every layer's slices of the cache leaves, as views (writes land in
+    the cache): a leaf ``group/key`` gives its group's layers their slice
+    under ``key``; a bare name gives every layer its slice."""
+    groups = cache_groups(cfg)
+    views: List[Cache] = [{} for _ in range(cfg.num_layers)]
+    for name, leaf in cache.items():
+        group, _, key = name.rpartition("/")
+        layers = groups[group + "/"] if group else range(cfg.num_layers)
+        for j, i in enumerate(layers):
+            views[i][key] = leaf[j]
+    return views
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device=None) -> Cache:
-    """Allocate the KV cache in the scan layout: k/v (L,B,W,Hkv,Dh) zeros,
-    pos (L,B,W) = -1.  A sliding window caps W at the window width."""
-    W = max_len if cfg.sliding_window is None else min(cfg.sliding_window,
-                                                       max_len)
-    L, Hkv, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    kv = (L, batch_size, W, Hkv, Dh)
-    return {"k": torch.zeros(kv, dtype=cfg.compute_dtype, device=device),
-            "v": torch.zeros(kv, dtype=cfg.compute_dtype, device=device),
-            "pos": torch.full((L, batch_size, W), -1, dtype=torch.int32,
-                              device=device)}
+    """Allocate the KV cache: per :func:`cache_groups` stack, k/v
+    (n_layers, B, W, Hkv, Dh) zeros and pos (n_layers, B, W) = -1, with
+    W = ``min(window, max_len)`` on sliding-window layers and ``max_len``
+    on the others."""
+    Hkv, Dh = cfg.num_kv_heads, cfg.head_dim
+    cache: Cache = {}
+    for prefix, layers in cache_groups(cfg).items():
+        w = _window_for_layer(cfg, layers[0])
+        W = max_len if w is None else min(w, max_len)
+        kv = (len(layers), batch_size, W, Hkv, Dh)
+        cache[prefix + "k"] = torch.zeros(kv, dtype=cfg.compute_dtype,
+                                          device=device)
+        cache[prefix + "v"] = torch.zeros(kv, dtype=cfg.compute_dtype,
+                                          device=device)
+        cache[prefix + "pos"] = torch.full((len(layers), batch_size, W), -1,
+                                           dtype=torch.int32, device=device)
+    return cache
 
 
 def init_paged_pool(cfg: ModelConfig, total_pages: int, page_size: int,
@@ -296,7 +359,8 @@ class Paging(NamedTuple):
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            cache: Cache, lengths: Optional[torch.Tensor] = None):
+            cache: Cache, lengths: Optional[torch.Tensor] = None,
+            layer_fn: LayerFn = dense_layer):
     """Full-sequence forward; fills ``cache`` in place.
     Returns (last_logits (B,V) float32, cache).
 
@@ -306,7 +370,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     carry pos > t and stay masked until decode overwrites them).
     """
     emb, positions = assemble_embeds(cfg, params, batch)
-    x = forward(cfg, params, emb, positions, cache, "prefill")
+    x = forward(cfg, params, emb, positions, cache, "prefill",
+                layer_fn=layer_fn)
     B, S = x.shape[:2]
     if lengths is None:
         xl = x[:, -1:]
@@ -320,7 +385,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                 tokens: torch.Tensor, t: torch.Tensor,
                 active: Optional[torch.Tensor] = None,
-                page_tables: Optional[torch.Tensor] = None):
+                page_tables: Optional[torch.Tensor] = None,
+                layer_fn: LayerFn = dense_layer):
     """One decode step. tokens: (B,), t: (B,) current positions; ``active``
     (B,) bool limits the cache writes to those rows.  With ``page_tables``
     (B, ppr) int32 on the tokens' device, ``cache`` is a page pool
@@ -348,5 +414,6 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         paging = Paging(page_tables, rows,
                         page_tables[rows, slot // page].long(),
                         slot.remainder(page))
-    x = forward(cfg, params, emb, positions, cache, "decode", rows, paging)
+    x = forward(cfg, params, emb, positions, cache, "decode", rows, paging,
+                layer_fn)
     return output_head(cfg, params, x)[:, 0], cache

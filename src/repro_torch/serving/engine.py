@@ -25,11 +25,18 @@ The pool has two layouts:
   payloads (:class:`PagedRow`) carry only the used pages.
 
 Prefill is bucketed as in the reference: prompts are grouped by length,
-each group runs at a power-of-two batch (the last real row repeated) and
-a power-of-two length, on a fresh small dense cache whose real rows are
-then copied into the pool (into the claimed pages, when paged).  Decode
-masks inactive rows, so a retired row's cache stays bit for bit as it
-was while its neighbours decode.  Greedy argmax happens on the host.
+each group runs at a power-of-two batch (the last real row repeated) on
+a fresh small dense cache whose real rows are then copied into the pool
+(into the claimed pages, when paged).  The dense family also pads each
+group to a power-of-two length; a recurrent family (hymba's SSM state)
+threads its state through every token and is never length-padded.
+Decode masks inactive rows, so a retired row's cache (KV rows and
+recurrent state) stays bit for bit as it was while its neighbours
+decode.  Greedy argmax happens on the host.
+
+Every leaf of every family's cache has its slot on axis 1 (per-layer
+stacks lead, ``models/transformer.py``), so ``leaf[:, s]`` serves every
+row operation: reset, extract, insert and the prefill group copy.
 """
 
 from __future__ import annotations
@@ -46,8 +53,18 @@ from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import model_zoo
 from repro_torch.models.common import ModelConfig
 
-#: cache leaves are all (L, B, W, ...): slot axis 1, length axis 2
-_LEN_AXIS = 2
+
+def _len_axes(cfg: ModelConfig, max_len: int) -> Dict[str, Optional[int]]:
+    """Per leaf, the axis whose size follows ``max_len``, or None for a
+    leaf that has none (recurrent state, a rolling window narrower than
+    ``max_len``).  Derived as the reference's ``_cache_len_axes``: where
+    the cache's shape changes when ``max_len`` does."""
+    a = model_zoo.init_cache(cfg, 1, max_len, "meta")
+    b = model_zoo.init_cache(cfg, 1, max_len + 1, "meta")
+    return {name: next((i for i, (x, y) in enumerate(zip(a[name].shape,
+                                                         b[name].shape))
+                        if x != y), None)
+            for name in a}
 
 
 @dataclasses.dataclass
@@ -181,9 +198,12 @@ class Endpoint:
         # A paged pool needs only its shapes (cache_nbytes_per_row).
         self._row_init = model_zoo.init_cache(
             cfg, 1, max_len, "meta" if self.paged else self.device)
-        # Length padding is sound for the dense family (causal masking
-        # hides padded positions; the model zoo serves no other family
-        # yet) and must stay within the rolling window.
+        self._len_axes = _len_axes(cfg, max_len)
+        # Length padding is sound only for the dense family: causal
+        # masking hides padded positions there, but recurrent state
+        # threads through every token.  It must also stay within the
+        # rolling window (padding must not wrap over live keys).
+        self._pad_len = cfg.family == "dense"
         self._len_cap = max_len
         if cfg.sliding_window is not None:
             self._len_cap = min(self._len_cap, cfg.sliding_window)
@@ -449,19 +469,22 @@ class Endpoint:
     def cache_nbytes_per_row(self, length: int) -> float:
         """Logical bytes of one slot's live cache state at decode position
         ``length``, what a migration ships over a link: leaves with a
-        sequence axis count only their filled positions, rounded up to
-        whole pages when paged.  Computed from shapes and dtypes, never
-        from device buffers."""
+        length axis count only their filled positions, rounded up to
+        whole pages when paged; leaves without one (recurrent state, a
+        rolling window narrower than ``max_len``) count in full.
+        Computed from shapes and dtypes, never from device buffers."""
         if self.paged:
             eff = min(self.pages_for(max(length, 1)) * self.page_size,
                       self.max_len)
         else:
             eff = min(length, self.max_len)
-        total = 0.0
-        for leaf in self._row_init.values():
-            per_row = float(np.prod(leaf.shape) * leaf.element_size())
-            total += per_row * (eff / leaf.shape[_LEN_AXIS])
-        return total
+        total = 0
+        for name, leaf in self._row_init.items():
+            per_row = leaf.numel() * leaf.element_size()
+            axis = self._len_axes[name]
+            total += (per_row if axis is None
+                      else per_row // leaf.shape[axis] * eff)
+        return float(total)
 
     # -- steps -------------------------------------------------------------
     @torch.no_grad()
@@ -492,9 +515,9 @@ class Endpoint:
     def _prefill_groups(self, prompts: Dict[int, np.ndarray]
                         ) -> Dict[int, int]:
         """Pack prompts into shared prefill calls, grouped by length, each
-        at a power-of-two batch (capped at the pool) and a power-of-two
-        length, on a fresh small cache whose real rows are copied into the
-        pool."""
+        at a power-of-two batch (capped at the pool) and, for the dense
+        family, a power-of-two length, on a fresh small cache whose real
+        rows are copied into the pool."""
         by_len: Dict[int, List[Tuple[int, np.ndarray]]] = {}
         for slot, toks in prompts.items():
             by_len.setdefault(len(toks), []).append((slot, toks))
@@ -502,14 +525,18 @@ class Endpoint:
         for L, group in sorted(by_len.items()):
             G = len(group)
             Bp = min(self.slots, max(1, 1 << (G - 1).bit_length()))
-            cand = 1 << max(L - 1, 0).bit_length()
-            Lb = cand if L <= cand <= self._len_cap else L
+            Lb = L
+            if self._pad_len:
+                cand = 1 << max(L - 1, 0).bit_length()
+                if L <= cand <= self._len_cap:
+                    Lb = cand
             # pad the batch to the pow2 bucket by repeating the last row
             tok = np.zeros((Bp, Lb), np.int32)
             for i in range(Bp):
                 tok[i, :L] = group[min(i, G - 1)][1]
-            lengths = torch.full((Bp,), L, dtype=torch.int32,
-                                 device=self.device)
+            lengths = (torch.full((Bp,), L, dtype=torch.int32,
+                                  device=self.device)
+                       if self._pad_len else None)
             small = model_zoo.init_cache(self.cfg, Bp, self.max_len,
                                          self.device)
             logits, small = model_zoo.prefill(

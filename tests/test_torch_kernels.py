@@ -1,11 +1,12 @@
-"""The port's attention kernels against the JAX reference's.
+"""The port's kernels against the JAX reference's.
 
 On the CPU the port's ``kernels.ops`` runs the plain PyTorch versions;
 they are held against ``repro.kernels.ops`` (the Pallas kernels in
 interpret mode, as ``tests/test_kernels.py`` runs them) and against
 ``repro.kernels.ref``, on the same inputs made with numpy from a seed.
 Tolerances are the reference's own (``tests/test_kernels.py:17-19``):
-2e-5 abs / 2e-4 rel in float32, 2e-2 in bfloat16.
+2e-5 abs / 2e-4 rel in float32, 2e-2 in bfloat16; 1e-4 / 1e-4 for the
+selective-SSM scan (``tests/test_kernels.py:180-183``).
 
 The ``gpu`` tests hold each CUDA kernel against its plain version on the
 card (the check ``chip_smoke.py`` runs), and the paged decode kernel K3
@@ -239,11 +240,13 @@ def test_cpu_tensors_take_the_plain_versions():
     t_ops.paged_decode_attention(q[:, 0], q[0, None], q[0, None],
                                  torch.zeros((1, 1), dtype=torch.int32),
                                  pos[:, -1], pos)
+    t_ops.ssd_scan(q.abs(), q, q[:, 0])
     assert t_ops.launches == {"flash_attention": 0, "flash_attention_plain": 1,
                               "decode_attention": 0,
                               "decode_attention_plain": 1,
                               "paged_decode_attention": 0,
-                              "paged_decode_attention_plain": 1}
+                              "paged_decode_attention_plain": 1,
+                              "ssd_scan": 0, "ssd_scan_plain": 1}
     t_ops.reset_launches()
     assert set(t_ops.launches.values()) == {0}
 
@@ -262,6 +265,86 @@ def test_flash_attention_backward_recomputes_through_plain():
     t_ref.flash_attention(*b, pos, pos, window=5).square().sum().backward()
     for x, y in zip(a, b):
         torch.testing.assert_close(x.grad, y.grad, atol=2e-5, rtol=2e-4)
+
+
+# ---------------------------------------------------------------- K5 ssd_scan
+
+
+def _ssd_inputs(rng, B, S, I, N, strong_decay=False):
+    """a in (0, 1) (sigmoid of a scaled normal, or 0.01 everywhere: the
+    regime where a cumprod closed form underflows), b and h0 normal, as
+    ``tests/test_kernels.py`` draws them."""
+    if strong_decay:
+        a = np.full((B, S, I, N), 0.01, np.float32)
+    else:
+        a = 1.0 / (1.0 + np.exp(-2.0 * rng.standard_normal((B, S, I, N))))
+    b = 0.5 * rng.standard_normal((B, S, I, N))
+    h0 = 0.2 * rng.standard_normal((B, I, N))
+    return tuple(np.asarray(x, np.float32) for x in (a, b, h0))
+
+
+@pytest.mark.parametrize("B,S,I,N,strong_decay", [
+    (1, 32, 16, 8, False),        # the shapes of test_ssd_scan_sweep
+    (2, 128, 40, 16, False),
+    (1, 64, 256, 16, False),
+    (1, 128, 8, 4, True),         # test_ssd_strong_decay_stable
+    (2, 256, 24, 16, False),      # two 128-step chunks of the reference
+])
+def test_ssd_scan_plain_matches_reference(jax_ref, B, S, I, N, strong_decay):
+    """ops.ssd_scan on CPU tensors (the plain sequential scan) against the
+    reference's Pallas kernel in interpret mode and its own oracle."""
+    from repro.kernels import ssd_scan as j_ssd
+    rng = np.random.default_rng(S + I)
+    a, b, h0 = _ssd_inputs(rng, B, S, I, N, strong_decay)
+    t_ops.reset_launches()
+    hs, hf = t_ops.ssd_scan(*(torch.from_numpy(x) for x in (a, b, h0)))
+    assert t_ops.launches["ssd_scan_plain"] == 1
+    assert hs.dtype == hf.dtype == torch.float32
+    assert hs.shape == (B, S, I, N) and hf.shape == (B, I, N)
+    ja, jb, jh = (jax_ref.jnp.asarray(x) for x in (a, b, h0))
+    for want_hs, want_hf in (j_ssd.ssd_scan(ja, jb, jh, interpret=True),
+                             jax_ref.ref.ssd_scan(ja, jb, jh)):
+        np.testing.assert_allclose(hs.numpy(), np.asarray(want_hs),
+                                   atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(hf.numpy(), np.asarray(want_hf),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_scan_length_rule_raises_in_both_packages(jax_ref):
+    """S = 200 is neither <= 128 nor a multiple of the reference kernel's
+    128-step chunk: both packages refuse it, with the same message."""
+    a, b, h0 = _ssd_inputs(np.random.default_rng(0), 1, 200, 8, 4)
+    msg = "seq len 200 is not divisible by chunk 128"
+    with pytest.raises(ValueError, match=msg):
+        jax_ref.ops.ssd_scan(*(jax_ref.jnp.asarray(x) for x in (a, b, h0)))
+    t_ops.reset_launches()
+    with pytest.raises(ValueError, match=msg):
+        t_ops.ssd_scan(*(torch.from_numpy(x) for x in (a, b, h0)))
+    assert set(t_ops.launches.values()) == {0}
+
+
+def test_ssd_scan_backward_recomputes_through_plain():
+    """The autograd.Function's backward equals differentiating the plain
+    version (the reference's custom_vjp contract)."""
+    rng = np.random.default_rng(4)
+    xs = [torch.from_numpy(x) for x in _ssd_inputs(rng, 2, 16, 6, 4)]
+    a = [x.clone().requires_grad_() for x in xs]
+    b = [x.clone().requires_grad_() for x in xs]
+    for fn, args in ((t_ops.ssd_scan, a), (t_ref.ssd_scan, b)):
+        hs, hf = fn(*args)
+        (hs.square().sum() + hf.sum()).backward()
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad, y.grad, atol=1e-6, rtol=1e-6)
+
+
+def test_ssd_scan_launcher_refuses_what_the_kernel_does_not_take():
+    from repro_torch.kernels import ssd_scan as k5
+    a, b, h0 = (torch.from_numpy(x) for x in
+                _ssd_inputs(np.random.default_rng(1), 1, 8, 4, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        k5.ssd_scan(a, b, h0)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        t_ops.ssd_scan(a.to("meta"), b.to("meta"), h0.to("meta"))
 
 
 # ---------------------------------------------------------------- on the card
@@ -360,3 +443,31 @@ def test_paged_decode_kernel_matches_plain_and_dense_kernel(
         v[idx].reshape(B, W, Hkv, D).contiguous(), qp,
         kpp[idx].reshape(B, W).contiguous(), window=window, softcap=softcap)
     assert torch.equal(got, dense)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,I,N,strong_decay", [
+    (1, 512, 3200, 16, False),    # hymba-1.5b's prefill
+    (1, 128, 3200, 16, True),
+    (2, 1, 3200, 16, False),
+    (3, 77, 40, 16, False),       # ragged: the unroll's tail, I*N % 256
+])
+def test_ssd_scan_kernel_matches_plain(cuda, B, S, I, N, strong_decay):
+    """K5 against its plain version (bitwise equality is expected: both
+    round the product and the sum separately), and the launcher's
+    refusals of a wrong dtype or shape."""
+    from repro_torch.kernels import ssd_scan as k5
+    rng = np.random.default_rng(S + I)
+    a, b, h0 = (torch.from_numpy(x).to(cuda) for x in
+                _ssd_inputs(rng, B, S, I, N, strong_decay))
+    t_ops.reset_launches()
+    hs, hf = t_ops.ssd_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert t_ops.launches["ssd_scan"] == 1
+    want_hs, want_hf = t_ref.ssd_scan(a, b, h0)
+    torch.testing.assert_close(hs, want_hs, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(hf, want_hf, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="float32"):
+        k5.ssd_scan(a.double(), b.double(), h0.double())
+    with pytest.raises(ValueError, match="shapes"):
+        k5.ssd_scan(a, b[..., :1].contiguous(), h0)
