@@ -15,10 +15,16 @@ Phases, each raising on failure (the script then exits non-zero):
    heads, window 1024); the paged kernel K3 over shuffled pages, and
    bitwise against K2 on the gathered view; the selective-SSM scan K5 at
    hymba-1.5b's width (I=3200, N=16; S = 1, 128, 512, 1024 and a
-   strong-decay case) in float32 (1e-4 abs / 1e-4 rel);
+   strong-decay case) in float32 (1e-4 abs / 1e-4 rel); the WKV6 scan K4
+   at rwkv6-7b's width (H=64, D=64; S = 1, 128, 512, B=4 S=256, a ragged
+   3x77x5x64 and a strong-decay case) and at the reference's sweep shapes,
+   in float32 (5e-4 abs / 5e-3 rel) and on bfloat16-rounded inputs
+   (5e-2), and scan(512) against scan(256) then scan(256);
 4. the stablelm smoke model served on the card against the same model on
-   the CPU through the plain versions (greedy ids must match);
+   the CPU through the plain versions (greedy ids must match, and the
+   card's run must launch exactly the family's kernels);
 4b. the same for the hymba smoke model (K1, K2 and K5 on the card);
+4c. the same for the rwkv6 smoke model (K4 alone on the card);
 5. the dense main path: full-width stablelm-1.6b (bf16, seeded random
    weights drawn on the card) served by ``repro_torch.platform.Continuum``
    over a 2-tier edge -> cloud continuum (edge 2 slots, cloud 16,
@@ -48,12 +54,20 @@ Phases, each raising on failure (the script then exits non-zero):
    plain version did; then times one cloud endpoint's 512-token prefill
    and 16-row decode step, with the device's busy share of each and its
    time by kernel;
+5e. the rwkv6 main path, shared with 5d: full-width rwkv6-7b (bf16, 7.58
+   B parameters, seeded random weights drawn on the card) served the same
+   way, the same prompt lengths.  Fails unless every request is served
+   with 32 tokens, K4 launched once a layer a prefill call and no other
+   kernel or plain version did, and a row's bytes (34,078,720: the WKV
+   state and two token shifts of 32 layers) do not grow with its
+   position; then the same prefill and decode-step times;
 6. timing of each kernel at the server's shapes (median over CUDA events,
    L2 flushed between launches) beside its bound, its plain version and a
    yardstick of PyTorch library calls (the port never calls them), printed
    as one ``{"kernels": [...]}`` line (K1 and K2 at stablelm's shapes, K3
-   at the paged tier's, K5 at hymba's); K1 and K2 are also timed at
-   hymba's shapes, on a line of their own.
+   at the paged tier's, K4 at rwkv6's, K5 at hymba's); K1, K2 and K5 are
+   also timed at hymba's shapes and K4 at one 512-token prompt, on lines
+   of their own.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the package beside this script, it prints no result and exits
@@ -63,6 +77,7 @@ non-zero.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -78,6 +93,9 @@ PEAK_FP32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2),
        "float32": dict(atol=2e-5, rtol=2e-4)}
+# the reference's WKV6 tolerance (tests/test_kernels.py:137-138)
+RWKV_TOL = {"bfloat16": dict(atol=5e-2, rtol=5e-2),
+            "float32": dict(atol=5e-4, rtol=5e-3)}
 
 
 def log(msg: str) -> None:
@@ -361,6 +379,78 @@ def parity_ssd() -> None:
             f"N={N} max_abs_err={max(errs):.3e} bitwise={bitwise} ok")
 
 
+def rwkv_inputs(B, S, H, D, gen, bf16=False, strong_decay=False):
+    """r, k, v normal (rounded through bfloat16 with ``bf16``, as the
+    model's bf16 projections feed the scan, then float32), lw = -0.4
+    |normal| (or -e^10, the clip's strongest decay), u = 0.3 normal, s0 =
+    0.1 normal, float32."""
+    import torch
+    r, k, v = (_rand((B, S, H, D), torch.float32, gen) for _ in range(3))
+    if bf16:
+        r, k, v = (x.bfloat16().float() for x in (r, k, v))
+    lw = (torch.full((B, S, H, D), -math.exp(10.0), device="cuda")
+          if strong_decay else
+          -0.4 * _rand((B, S, H, D), torch.float32, gen).abs())
+    u = 0.3 * _rand((H, D), torch.float32, gen)
+    s0 = 0.1 * _rand((B, H, D, D), torch.float32, gen)
+    return r, k, v, lw, u, s0
+
+
+def _rwkv_close(label, got, want, dname):
+    """Max abs error of K4's (y, s_final) against the plain version's,
+    raising outside the reference's tolerance."""
+    import torch
+    errs = []
+    for name, g, w in zip(("y", "s_final"), got, want):
+        torch.testing.assert_close(g, w, **RWKV_TOL[dname],
+                                   msg=lambda m: f"K4 {label} {name}: {m}")
+        if not torch.isfinite(g).all():
+            raise RuntimeError(f"K4 {label} {name}: non-finite output")
+        errs.append((g - w).abs().max().item())
+    return max(errs)
+
+
+def parity_rwkv() -> None:
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    k4 = [  # (label, B, S, H, D, strong_decay)
+        ("sweep-d8", 1, 32, 2, 8, False),      # tests/test_kernels.py sweep
+        ("sweep-d16", 2, 128, 4, 16, False),
+        ("sweep-d64", 2, 64, 1, 64, False),
+        ("decode-like", 1, 1, 64, 64, False),  # rwkv6-7b: H 64, D 64
+        ("chunk", 1, 128, 64, 64, False),
+        ("main", 1, 512, 64, 64, False),
+        ("batch4", 4, 256, 64, 64, False),
+        ("ragged", 3, 77, 5, 64, False),
+        ("strong-decay", 1, 512, 64, 64, True),
+    ]
+    for dname in ("float32", "bfloat16"):
+        for label, B, S, H, D, strong in k4:
+            xs = rwkv_inputs(B, S, H, D, gen, dname == "bfloat16", strong)
+            got = ops.rwkv6_scan(*xs)
+            torch.cuda.synchronize()
+            err = _rwkv_close(label, got, ref.rwkv6_scan(*xs), dname)
+            inputs = "float32" if dname == "float32" else "bf16-rounded"
+            log(f"[parity] K4 rwkv6_scan {label:12s} {inputs:12s} B={B} "
+                f"S={S} H={H} D={D} max_abs_err={err:.3e} ok")
+    # the state carries: one 512-token scan against two of 256
+    r, k, v, lw, u, s0 = rwkv_inputs(1, 512, 64, 64, gen)
+    y_all, s_all = ops.rwkv6_scan(r, k, v, lw, u, s0)
+    y1, s1 = ops.rwkv6_scan(*(t[:, :256].contiguous() for t in (r, k, v, lw)),
+                            u, s0)
+    y2, s2 = ops.rwkv6_scan(*(t[:, 256:].contiguous() for t in (r, k, v, lw)),
+                            u, s1)
+    torch.cuda.synchronize()
+    y_two = torch.cat([y1, y2], dim=1)
+    err = _rwkv_close("scan(256)+scan(256)", (y_two, s2), (y_all, s_all),
+                      "float32")
+    bitwise = torch.equal(y_two, y_all) and torch.equal(s2, s_all)
+    log(f"[parity] K4 rwkv6_scan scan(512) vs scan(256) then scan(256) from "
+        f"the carried state, B=1 H=64 D=64: max_abs_err={err:.3e} "
+        f"bitwise={bitwise} ok")
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -368,7 +458,8 @@ def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
                                              "decode_attention")) -> None:
     """The smoke model of ``arch`` on the card (kernels) and on the CPU
     (plain versions), same weights, same requests: greedy ids must match,
-    and the card's run must have launched each of ``kernels``."""
+    and the card's run must have launched each of ``kernels`` and nothing
+    else."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -399,7 +490,8 @@ def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
     if streams["cpu"] != streams["cuda"]:
         raise RuntimeError(f"{arch} smoke model: greedy ids on the card "
                            f"differ from the CPU plain path")
-    if any(launched[k] <= 0 or launched[k + "_plain"] for k in kernels):
+    if any(launched[k] <= 0 for k in kernels) or any(
+            n for k, n in launched.items() if k not in kernels):
         raise RuntimeError(f"{arch} smoke model on the card: {launched}")
     log(f"[model] {arch} smoke model on cuda == cpu plain path: "
         f"{sum(len(v) for v in streams['cuda'].values())} tokens identical; "
@@ -412,18 +504,20 @@ def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
 class recording:
     """Within the block, record the shapes each kernel launcher is called
     with (``shapes``: kernel -> shapes -> launches): (q, k) for K1 and K2,
-    (q, pages, tables) for K3, (a, b) for K5; and, given ``calls``, count
-    the model-level prefill and decode calls."""
+    (q, pages, tables) for K3, (r,) for K4, (a, b) for K5; and, given
+    ``calls``, count the model-level prefill and decode calls."""
 
     def __init__(self, shapes: dict, calls: dict = None):
         from repro_torch.kernels import decode_attention as _dec
         from repro_torch.kernels import flash_attention as _fa
+        from repro_torch.kernels import rwkv6_scan as _rwkv
         from repro_torch.kernels import ssd_scan as _ssd
         from repro_torch.models import model_zoo
         self.shapes, self.calls = shapes, calls
         self.targets = [(_fa, "flash_attention", "K1", (0, 1)),
                         (_dec, "decode_attention", "K2", (0, 1)),
                         (_dec, "paged_decode_attention", "K3", (0, 1, 3)),
+                        (_rwkv, "rwkv6_scan", "K4", (0,)),
                         (_ssd, "ssd_scan", "K5", (0, 1))]
         if calls is not None:
             self.targets += [(model_zoo, "prefill", "prefill", None),
@@ -530,13 +624,13 @@ def serve_full(cfg, params, shapes: dict) -> dict:
     return launches
 
 
-def full_model():
-    """stablelm-1.6b at full width, bf16, seeded random weights drawn on
-    the card."""
+def full_model(arch: str):
+    """``arch`` at full width, bf16, seeded random weights drawn on the
+    card."""
     import torch
     from repro_torch import configs
     from repro_torch.models import model_zoo
-    cfg = configs.get_config("stablelm-1.6b")
+    cfg = configs.get_config(arch)
     params = model_zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     return cfg, params
@@ -699,20 +793,14 @@ def serve_paged(cfg, params, shapes: dict) -> dict:
     return launches
 
 
-HYMBA_PROMPTS = (64, 100, 128, 256, 384, 512)   # lengths the SSM scan admits
-HYMBA_LONG = 1024                               # past the 1024-token window
-
-
-def hymba_model():
-    """hymba-1.5b at full width, bf16, seeded random weights drawn on the
-    card."""
-    import torch
-    from repro_torch import configs
-    from repro_torch.models import model_zoo
-    cfg = configs.get_config("hymba-1.5b")
-    params = model_zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    return cfg, params
+# prompt lengths both scans' rule admits (S <= 128 or S % 128 == 0)
+SCAN_PROMPTS = (64, 100, 128, 256, 384, 512)
+LONG_PROMPT = 1024                  # past hymba's 1024-token window
+RECURRENT_MAX_LEN = 2048
+PREFILL_KERNELS = ("flash_attention", "rwkv6_scan", "ssd_scan")
+KERNEL_TAGS = {"flash_attention": "K1", "decode_attention": "K2",
+               "paged_decode_attention": "K3", "rwkv6_scan": "K4",
+               "ssd_scan": "K5"}
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -748,29 +836,31 @@ def _device_ms(fn, n: int):
     return sum(by_name.values()), by_name
 
 
-def serve_hymba(cfg, params, shapes: dict, card: str) -> dict:
-    """Phase 5d: the hymba main path through the continuum, then one cloud
-    endpoint's prefill and decode step times and busy share."""
+def serve_recurrent(tag: str, cfg, params, shapes: dict, card: str,
+                    kernels: tuple, scan: str, state_keys: tuple,
+                    seed: int) -> dict:
+    """Phases 5d and 5e: a recurrent family's main path through the
+    continuum (edge 2 slots, cloud 16, max_len 2048, policy auto; 40
+    requests of 32 new tokens ramped over 8 rounds, prompts drawn from
+    ``SCAN_PROMPTS`` and four of ``LONG_PROMPT``), then one cloud
+    endpoint's prefill and decode step times and busy share.  Fails
+    unless every request is served with 32 tokens, each of ``kernels``
+    launched and nothing else did (no plain version, no other kernel),
+    and ``scan`` launched once a layer a prefill call.  ``state_keys``
+    are the cache leaves of the recurrent state."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.platform import (AutoscalingPolicy, Continuum,
                                       FunctionSpec, Request, TierConfig)
-    nparams = sum(p.numel() for p in params.values())
-    log(f"[hymba] hymba-1.5b full width: {cfg.num_layers} layers "
-        f"(global {cfg.global_layers}, window {cfg.sliding_window}), "
-        f"d={cfg.d_model}, heads={cfg.num_heads}/{cfg.num_kv_heads}, "
-        f"head_dim={cfg.head_dim}, d_ff={cfg.d_ff}, "
-        f"ssm I={cfg.ssm_d_inner} N={cfg.ssm_state}, vocab={cfg.vocab_size}, "
-        f"{nparams / 1e9:.3f}B params bf16")
-    max_len, max_new = 2048, 32
+    max_len, max_new = RECURRENT_MAX_LEN, 32
     cc = Continuum(edge=TierConfig(slots=2, max_len=max_len),
                    cloud=TierConfig(slots=16, max_len=max_len,
                                     extra_latency_s=0.02),
                    policy="auto", seed=0, device="cuda")
-    cc.deploy(FunctionSpec(name="hymba", arch="hymba-1.5b",
+    cc.deploy(FunctionSpec(name=tag, arch=cfg.name,
                            autoscaling=AutoscalingPolicy()), cfg, params)
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     per_round = (2, 3, 4, 5, 6, 6, 7, 7)                # 40 requests
     long_rids = {3, 12, 22, 33}                         # 1024-token prompts
     calls = {"prefill": 0, "decode": 0}
@@ -781,15 +871,15 @@ def serve_hymba(cfg, params, shapes: dict, card: str) -> dict:
     with recording(shapes, calls):
         for rnd, n in enumerate(per_round):
             for _ in range(n):
-                L = (HYMBA_LONG if len(reqs) in long_rids
-                     else int(rng.choice(HYMBA_PROMPTS)))
+                L = (LONG_PROMPT if len(reqs) in long_rids
+                     else int(rng.choice(SCAN_PROMPTS)))
                 toks = rng.integers(0, cfg.vocab_size, L).astype(np.int32)
                 req = Request(rid=len(reqs), tokens=toks, max_new=max_new)
                 reqs.append(req)
-                if not cc.submit("hymba", req):
-                    raise RuntimeError(f"hymba request {req.rid} rejected")
+                if not cc.submit(tag, req):
+                    raise RuntimeError(f"{tag} request {req.rid} rejected")
             rec = cc.tick()
-            log(f"[hymba] round={rnd} submitted={n} "
+            log(f"[{tag}] round={rnd} submitted={n} "
                 f"edge={rec['tiers']['edge']} cloud={rec['tiers']['cloud']} "
                 f"steps={rec['steps']} R_t={rec['R']:.1f}%")
         drained = cc.drain()
@@ -800,47 +890,50 @@ def serve_hymba(cfg, params, shapes: dict, card: str) -> dict:
     served = {t.name: sum(r["tiers"][t.name] for r in cc.log)
               for t in cc.tiers}
     if sum(served.values()) != len(reqs) or any(r.failed for r in reqs):
-        raise RuntimeError(f"hymba: served {served} of {len(reqs)}")
+        raise RuntimeError(f"{tag}: served {served} of {len(reqs)}")
     for r in reqs:
         if (r.output is None or r.output.shape != (max_new,)
                 or r.output.min() < 0 or r.output.max() >= cfg.vocab_size):
-            raise RuntimeError(f"hymba request {r.rid}: bad output "
+            raise RuntimeError(f"{tag} request {r.rid}: bad output "
                                f"{r.output}")
-    if min(launches[k] for k in ("flash_attention", "decode_attention",
-                                 "ssd_scan")) <= 0:
-        raise RuntimeError(f"hymba path skipped a kernel: {launches}")
-    if any(launches[k] for k in launches if k.endswith("_plain")) or \
-            launches["paged_decode_attention"]:
-        raise RuntimeError(f"hymba path ran a plain version: {launches}")
-    if launches["ssd_scan"] != cfg.num_layers * calls["prefill"]:
-        raise RuntimeError(f"hymba: {launches['ssd_scan']} K5 launches for "
-                           f"{calls['prefill']} prefill calls")
-    widths = {k[1][1] for k in shapes["K2"]}
-    if widths != {cfg.sliding_window, max_len}:
-        raise RuntimeError(f"hymba: K2 read caches of widths {widths}")
+    if min(launches[k] for k in kernels) <= 0:
+        raise RuntimeError(f"{tag} path skipped a kernel: {launches}")
+    if any(n for k, n in launches.items() if k not in kernels):
+        raise RuntimeError(f"{tag} path ran a plain version or another "
+                           f"kernel: {launches}")
+    if launches[scan] != cfg.num_layers * calls["prefill"]:
+        raise RuntimeError(f"{tag}: {launches[scan]} {KERNEL_TAGS[scan]} "
+                           f"launches for {calls['prefill']} prefill calls")
     tokens = len(reqs) * max_new
-    log(f"[hymba] served {len(reqs)}/{len(reqs)} edge={served['edge']} "
+    log(f"[{tag}] served {len(reqs)}/{len(reqs)} edge={served['edge']} "
         f"cloud={served['cloud']} drain_ticks={drained} tokens={tokens} "
         f"wall={secs:.2f}s tokens_per_s={tokens / secs:.1f} "
         f"final_R_t={cc.log[-1]['R']:.2f}% launches={launches}")
-    log(f"[hymba] {calls['prefill']} prefill calls, {calls['decode']} decode "
-        f"steps: K5 launches per prefill "
-        f"{launches['ssd_scan'] / max(calls['prefill'], 1):g}, K1 per "
-        f"prefill {launches['flash_attention'] / max(calls['prefill'], 1):g}"
-        f", K2 per decode step "
-        f"{launches['decode_attention'] / max(calls['decode'], 1):g}")
-    for k in ("K1", "K2", "K5"):
-        log(f"[hymba] {k} shapes -> launches: "
-            f"{ {str(s): n for s, n in sorted(shapes[k].items())} }")
+    per = [f"{KERNEL_TAGS[k]} per prefill "
+           f"{launches[k] / max(calls['prefill'], 1):g}"
+           if k in PREFILL_KERNELS else
+           f"{KERNEL_TAGS[k]} per decode step "
+           f"{launches[k] / max(calls['decode'], 1):g}" for k in kernels]
+    log(f"[{tag}] {calls['prefill']} prefill calls, {calls['decode']} decode "
+        f"steps: {', '.join(per)}")
+    for k in kernels:
+        t = KERNEL_TAGS[k]
+        log(f"[{tag}] {t} shapes -> launches: "
+            f"{ {str(s): n for s, n in sorted(shapes[t].items())} }")
 
     # one cloud endpoint, now idle: bytes per row, prefill, decode step
-    ep = cc.tiers[-1].endpoints["hymba"]
-    ssm_bytes = sum(ep._row_init[k].numel() * ep._row_init[k].element_size()
-                    for k in ("h", "conv"))
-    for L in (512, HYMBA_LONG + max_new):
+    ep = cc.tiers[-1].endpoints[tag]
+    state = sum(ep._row_init[k].numel() * ep._row_init[k].element_size()
+                for k in state_keys)
+    for L in (512, LONG_PROMPT + max_new):
         row = ep.cache_nbytes_per_row(L)
-        log(f"[hymba] bytes per row at position {L}: {row:.0f} (KV "
-            f"{row - ssm_bytes:.0f}, SSM state {ssm_bytes})")
+        log(f"[{tag}] bytes per row at position {L}: {row:.0f} (KV "
+            f"{row - state:.0f}, recurrent state {state})")
+    if all(ax is None for ax in ep._len_axes.values()):
+        # no leaf grows with the context: every position holds the state
+        rows = {ep.cache_nbytes_per_row(L) for L in (0, 1, 512, max_len)}
+        if rows != {float(state)}:
+            raise RuntimeError(f"{tag}: row bytes {rows} != state {state}")
     probe = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
     s0 = ep.try_claim()
 
@@ -853,7 +946,7 @@ def serve_hymba(cfg, params, shapes: dict, card: str) -> dict:
     prompts = {s0: probe}
     while ep.active < ep.slots:
         prompts[ep.try_claim()] = rng.integers(
-            0, cfg.vocab_size, int(rng.choice(HYMBA_PROMPTS))).astype(np.int32)
+            0, cfg.vocab_size, int(rng.choice(SCAN_PROMPTS))).astype(np.int32)
     toks = ep.prefill_batch(prompts)
 
     def step():
@@ -869,12 +962,45 @@ def serve_hymba(cfg, params, shapes: dict, card: str) -> dict:
     for what, wall, (dev, by_name) in (
             ("prefill of one 512-token prompt", prefill_ms, prefill_dev),
             (f"decode step of {ep.slots} rows", decode_ms, decode_dev)):
-        log(f"[hymba] cloud endpoint, {what}: {wall:.3f} ms wall (median), "
+        log(f"[{tag}] cloud endpoint, {what}: {wall:.3f} ms wall (median), "
             f"device time {dev:.4f} ms (profiler), busy share "
             f"{100 * dev / wall:.1f}% ({card})")
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            log(f"[hymba]   {ms:8.4f} ms a call  {name[:90]}")
+            log(f"[{tag}]   {ms:8.4f} ms a call  {name[:90]}")
     return launches
+
+
+def serve_hymba(cfg, params, shapes: dict, card: str) -> dict:
+    """Phase 5d: the hymba main path; its K2 must read both cache widths
+    (the 1024-wide rolling window and the 2048-wide global layers)."""
+    nparams = sum(p.numel() for p in params.values())
+    log(f"[hymba] hymba-1.5b full width: {cfg.num_layers} layers "
+        f"(global {cfg.global_layers}, window {cfg.sliding_window}), "
+        f"d={cfg.d_model}, heads={cfg.num_heads}/{cfg.num_kv_heads}, "
+        f"head_dim={cfg.head_dim}, d_ff={cfg.d_ff}, "
+        f"ssm I={cfg.ssm_d_inner} N={cfg.ssm_state}, vocab={cfg.vocab_size}, "
+        f"{nparams / 1e9:.3f}B params bf16")
+    launches = serve_recurrent(
+        "hymba", cfg, params, shapes, card,
+        ("flash_attention", "decode_attention", "ssd_scan"), "ssd_scan",
+        ("h", "conv"), seed=11)
+    widths = {k[1][1] for k in shapes["K2"]}
+    if widths != {cfg.sliding_window, RECURRENT_MAX_LEN}:
+        raise RuntimeError(f"hymba: K2 read caches of widths {widths}")
+    return launches
+
+
+def serve_rwkv6(cfg, params, shapes: dict, card: str) -> dict:
+    """Phase 5e: the rwkv6 main path, prefill through K4 alone, decode
+    through the O(1) recurrence (no kernel)."""
+    nparams = sum(p.numel() for p in params.values())
+    log(f"[rwkv6] rwkv6-7b full width: {cfg.num_layers} layers, "
+        f"d={cfg.d_model}, {cfg.num_rwkv_heads} heads of "
+        f"{cfg.rwkv_head_dim}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}, "
+        f"{nparams / 1e9:.3f}B params bf16")
+    return serve_recurrent("rwkv6", cfg, params, shapes, card,
+                           ("rwkv6_scan",), "rwkv6_scan",
+                           ("tm_x", "tm_s", "cm_x"), seed=13)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1018,22 +1144,51 @@ def _k5_row(key, launches, gen, flush) -> dict:
         "shape": f"B={B} S={S} I={I} N={N} float32"}
 
 
+def _k4_row(key, launches, gen, flush) -> dict:
+    """K4 timed at one (r,) shape of a prefill, beside its bound and its
+    plain version; no single PyTorch call computes the recurrence."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    ((B, S, H, D),) = key
+    xs = rwkv_inputs(B, S, H, D, gen)
+    got = ops.rwkv6_scan(*xs)
+    err = _rwkv_close("timing inputs", got, ref.rwkv6_scan(*xs), "float32")
+    ms = _time_ms(lambda: ops.rwkv6_scan(*xs), flush)
+    plain = _time_ms(lambda: ref.rwkv6_scan(*xs), flush, reps=10, warmup=2)
+    y, s_final = got
+    # read r, k, v, lw, u, s0 once; write y and s_final once
+    nbytes = (5 * y.numel() + 2 * s_final.numel() + xs[4].numel()) * 4
+    flops = 5.0 * B * S * H * D * D     # a product and two fmas per (t,i,j)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return {
+        "name": "rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:87",
+        "launches": launches["rwkv6_scan"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        "library": "none: no PyTorch call computes the WKV6 recurrence",
+        "shape": f"B={B} S={S} H={H} D={D} float32"}
+
+
 def _stablelm_prompts(n, gen):
     import torch
     return torch.randint(64, 513, (n,), generator=gen)
 
 
-def _hymba_prompts(n, gen):
+def _scan_prompts(n, gen):
     import torch
-    lens = torch.tensor(HYMBA_PROMPTS)
+    lens = torch.tensor(SCAN_PROMPTS)
     return lens[torch.randint(0, len(lens), (n,), generator=gen)]
 
 
 def timing(shapes: dict, launches: dict, hy_shapes: dict,
-           hy_launches: dict, window: int) -> tuple:
+           hy_launches: dict, window: int, rw_shapes: dict,
+           rw_launches: dict) -> tuple:
     """Phase 6.  Returns (the kernels' rows: K1, K2 at stablelm's main
-    path, K3 at the paged tier's, K5 at hymba's; K1 and K2 at hymba's
-    shapes)."""
+    path, K3 at the paged tier's, K4 at rwkv6's, K5 at hymba's; K1, K2
+    and K5 at hymba's shapes; K4 at one 512-token prompt)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -1101,6 +1256,10 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
         "library": "2x index_select + scaled_dot_product_attention",
         "shape": f"B={B} ppr={ppr} page={page} Hq={Hq} Hkv={Hkv} D={D} "
                  f"bf16 live_slots={valid} pool_pages={kpg.shape[0]}"})
+    # K4 at the shape the rwkv6 main path launched it at most
+    k4_key = max(rw_shapes["K4"], key=lambda s: (rw_shapes["K4"][s],
+                                                 s[0][1]))
+    rows.append(_k4_row(k4_key, rw_launches, gen, flush))
     # K5 at the shape the hymba main path launched it at most
     k5_key = max(hy_shapes["K5"], key=lambda s: (hy_shapes["K5"][s],
                                                  s[0][1]))
@@ -1115,12 +1274,15 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
         width = w or max(s[1][1] for s in hy_shapes["K2"])
         key = max((s for s in hy_shapes["K2"] if s[1][1] == width),
                   key=lambda s: (s[0][0], hy_shapes["K2"][s]))
-        hy_rows.append(_k2_row(key, hy_launches, gen, flush, _hymba_prompts,
+        hy_rows.append(_k2_row(key, hy_launches, gen, flush, _scan_prompts,
                                w)[0])
     # and K5 at one 512-token prompt, whatever the path launched most
     (_, _, I, N), _ = k5_key
     hy_rows.append(_k5_row(((1, 512, I, N), None), hy_launches, gen, flush))
-    for tag, rs in (("time", rows), ("time-hymba", hy_rows)):
+    ((_, _, H, D),) = k4_key
+    rw_rows = [_k4_row(((1, 512, H, D),), rw_launches, gen, flush)]
+    for tag, rs in (("time", rows), ("time-hymba", hy_rows),
+                    ("time-rwkv6", rw_rows)):
         for r in rs:
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
@@ -1128,7 +1290,7 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
                 f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
                 f"{r['plain_ms']:.4f} ms, library {lib}, launches "
                 f"{r['launches']}")
-    return rows, hy_rows
+    return rows, hy_rows, rw_rows
 
 
 # ---------------------------------------------------------------- main
@@ -1156,10 +1318,12 @@ def main() -> int:
     parity()
     parity_paged()
     parity_ssd()
+    parity_rwkv()
     smoke_model_vs_cpu("stablelm-1.6b")
     smoke_model_vs_cpu("hymba-1.5b", ("flash_attention", "decode_attention",
                                       "ssd_scan"))
-    cfg, params = full_model()
+    smoke_model_vs_cpu("rwkv6-7b", ("rwkv6_scan",))
+    cfg, params = full_model("stablelm-1.6b")
     shapes: dict = {}
     launches = serve_full(cfg, params, shapes)
     paged_vs_dense(cfg, params, card)
@@ -1170,14 +1334,21 @@ def main() -> int:
     shapes["K3"] = paged_shapes["K3"]
     del params
     torch.cuda.empty_cache()
-    hcfg, hparams = hymba_model()
+    hcfg, hparams = full_model("hymba-1.5b")
     hy_shapes: dict = {}
     hy_launches = serve_hymba(hcfg, hparams, hy_shapes, card)
     del hparams
     torch.cuda.empty_cache()
-    rows, hy_rows = timing(shapes, launches, hy_shapes, hy_launches,
-                           hcfg.sliding_window)
+    rcfg, rparams = full_model("rwkv6-7b")
+    rw_shapes: dict = {}
+    rw_launches = serve_rwkv6(rcfg, rparams, rw_shapes, card)
+    del rparams
+    torch.cuda.empty_cache()
+    rows, hy_rows, rw_rows = timing(shapes, launches, hy_shapes, hy_launches,
+                                    hcfg.sliding_window, rw_shapes,
+                                    rw_launches)
     log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")
+    log(f"[time-rwkv6] {json.dumps({'kernels_at_rwkv6_512': rw_rows})}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

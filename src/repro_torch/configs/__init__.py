@@ -1,9 +1,9 @@
 """Architecture registry of the port.
 
-The dense stablelm-1.6b and the hybrid hymba-1.5b are ported.  Every
-other architecture of the reference registry raises
-``NotImplementedError`` naming the ROADMAP item that will port its
-family.
+The dense stablelm-1.6b, the hybrid hymba-1.5b and the attention-free
+rwkv6-7b are ported.  Every other architecture of the reference
+registry raises ``NotImplementedError`` naming the ROADMAP item that
+will port its family.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from repro_torch.models.common import ModelConfig
 _MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
     "hymba-1.5b": "hymba_1_5b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 #: the reference's other architectures, by the ROADMAP item that ports them
@@ -27,7 +28,6 @@ _LATER = {
     "musicgen-medium": "the dense-family follow-up (audio tokens)",
     "qwen2-moe-a2.7b": "MoE",
     "mixtral-8x7b": "MoE",
-    "rwkv6-7b": "rwkv6 with kernel K4",
 }
 
 ARCHS: Tuple[str, ...] = tuple(_MODULES)

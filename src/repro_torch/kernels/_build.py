@@ -29,7 +29,7 @@ from typing import Dict, Iterable, List, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES: Tuple[str, ...] = ("flash_attention", "decode_attention",
-                            "ssd_scan")
+                            "rwkv6_scan", "ssd_scan")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

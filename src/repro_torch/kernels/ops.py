@@ -2,8 +2,8 @@
 
 The counterpart of ``repro/kernels/ops.py``.  A CUDA tensor always goes
 through the hand-written kernel (K1 ``flash_attention.cu``; K2 and K3,
-dense and paged decode, ``decode_attention.cu``; K5, the selective-SSM
-scan, ``ssd_scan.cu``); a CPU tensor goes through the plain PyTorch
+dense and paged decode, ``decode_attention.cu``; K4, the WKV6 scan,
+``rwkv6_scan.cu``; K5, the selective-SSM scan, ``ssd_scan.cu``); a CPU tensor goes through the plain PyTorch
 version in :mod:`repro_torch.kernels.ref`.  There is no switch and no
 fallback: a kernel that cannot build or launch raises.
 
@@ -11,10 +11,10 @@ fallback: a kernel that cannot build or launch raises.
 actually ran it (plain integers; :func:`reset_launches` zeroes them), so
 a run can show which path the model took.
 
-K1 and K5 sit inside a :class:`torch.autograd.Function` whose backward
-recomputes through the plain version, as ``custom_vjp`` does in the
-reference (``repro/kernels/ops.py:39-62, 114-131``); serving never takes
-it.
+K1, K4 and K5 sit inside a :class:`torch.autograd.Function` whose
+backward recomputes through the plain version, as ``custom_vjp`` does in
+the reference (``repro/kernels/ops.py:39-62, 92-131``); serving never
+takes it.
 """
 
 from __future__ import annotations
@@ -26,16 +26,19 @@ import torch
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_scan as _rwkv
 from repro_torch.kernels import ssd_scan as _ssd
 
-#: the reference kernel's time chunk (``repro/kernels/ops.py:116``); the
-#: port keeps its length rule, not its chunking
-SSD_CHUNK = 128
+#: the time chunk of the reference's scan kernels (``ssd_scan.py:64-68``,
+#: ``rwkv6_scan.py:94-96``); the port keeps their length rule, not their
+#: chunking
+SCAN_CHUNK = 128
 
 launches: Dict[str, int] = {
     "flash_attention": 0, "flash_attention_plain": 0,
     "decode_attention": 0, "decode_attention_plain": 0,
     "paged_decode_attention": 0, "paged_decode_attention_plain": 0,
+    "rwkv6_scan": 0, "rwkv6_scan_plain": 0,
     "ssd_scan": 0, "ssd_scan_plain": 0,
 }
 
@@ -127,6 +130,49 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, q_pos,
                                       softcap=softcap)
 
 
+def _check_scan_len(S: int) -> None:
+    """The reference's scan kernels raise unless S <= 128 or S % 128 == 0
+    (``chunk = min(chunk, S)``, then ``S % chunk``); so do the port's, on
+    every device, so both admit exactly the reference kernel path's
+    prompt lengths."""
+    chunk = min(SCAN_CHUNK, S)
+    if chunk and S % chunk:
+        raise ValueError(f"seq len {S} is not divisible by chunk {chunk}")
+
+
+def _rwkv_forward(r, k, v, lw, u, s0):
+    if _on_cuda(r, "rwkv6_scan"):
+        out = _rwkv.rwkv6_scan(r, k, v, lw, u, s0)
+        launches["rwkv6_scan"] += 1
+        return out
+    launches["rwkv6_scan_plain"] += 1
+    return ref.rwkv6_scan(r, k, v, lw, u, s0)
+
+
+class _Rwkv6Scan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, s0):
+        ctx.save_for_backward(r, k, v, lw, u, s0)
+        return _rwkv_forward(r, k, v, lw, u, s0)
+
+    @staticmethod
+    def backward(ctx, g_y, g_s):
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y, s = ref.rwkv6_scan(*xs)
+            return torch.autograd.grad((y, s), xs, (g_y, g_s))
+
+
+def rwkv6_scan(r, k, v, lw, u, s0):
+    """WKV6 scan: y_t = r_t.(S + u k_t v_t^T), S <- diag(e^{lw_t}) S +
+    k_t v_t^T.  r, k, v, lw: (B,S,H,D) float32 (lw <= 0); u: (H,D); s0:
+    (B,H,D,D) float32.  Returns (y (B,S,H,D), s_final (B,H,D,D)),
+    float32.  Raises the reference's ``ValueError`` unless S <= 128 or
+    S % 128 == 0 (``repro/kernels/rwkv6_scan.py:94-96``)."""
+    _check_scan_len(r.shape[1])
+    return _Rwkv6Scan.apply(r, k, v, lw, u, s0)
+
+
 def _ssd_forward(a, b, h0):
     if _on_cuda(a, "ssd_scan"):
         out = _ssd.ssd_scan(a, b, h0)
@@ -156,11 +202,6 @@ def ssd_scan(a, b, h0):
     h0: (B,I,N) float32.  Returns (hs (B,S,I,N), h_final (B,I,N)), float32.
 
     Raises the reference's ``ValueError`` unless S <= 128 or S % 128 == 0
-    (its kernel's chunk, ``repro/kernels/ssd_scan.py:64-68``), on every
-    device, so the port accepts exactly the prompt lengths the reference's
-    kernel path does."""
-    S = a.shape[1]
-    chunk = min(SSD_CHUNK, S)
-    if chunk and S % chunk:
-        raise ValueError(f"seq len {S} is not divisible by chunk {chunk}")
+    (its kernel's chunk, ``repro/kernels/ssd_scan.py:64-68``)."""
+    _check_scan_len(a.shape[1])
     return _SsdScan.apply(a, b, h0)

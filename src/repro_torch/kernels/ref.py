@@ -2,8 +2,8 @@
 
 The counterpart of ``repro/kernels/ref.py``: the O(S^2) materialized
 attention score oracle with the positional mask, float32 accumulation and
-fully masked rows zeroed (``:18-51``), and the sequential selective-SSM
-recurrence (``:69-80``).  The CPU tests run these; on the card
+fully masked rows zeroed (``:18-51``), the literal WKV6 recurrence
+(``:54-66``) and the sequential selective-SSM recurrence (``:69-80``).  The CPU tests run these; on the card
 ``chip_smoke.py`` holds the CUDA kernels against them.  Nothing on the
 main path calls them when the tensors live on a card.
 """
@@ -79,6 +79,27 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, q_pos,
     kv_pos = kv_pos_pages[idx].reshape(B, ppr * page)
     return decode_attention(q, k, v, q_pos, kv_pos, window=window,
                             softcap=softcap)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               lw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
+    """The WKV6 recurrence, one token at a time in float32, per head::
+
+        y_t = r_t . (S + u k_t v_t^T),   S <- diag(e^{lw_t}) S + k_t v_t^T
+
+    r, k, v, lw: (B,S,H,D) (lw the log-decay, <= 0); u: (H,D); s0:
+    (B,H,D,D).  Returns (y (B,S,H,D) float32, s_final (B,H,D,D)
+    float32)."""
+    r, k, v, lw = (t.float() for t in (r, k, v, lw))
+    u = u.float()
+    s = s0.float()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (B,H,D,D)
+        ys.append(torch.einsum("bhd,bhde->bhe", r[:, t],
+                               s + u[:, :, None] * kv))
+        s = torch.exp(lw[:, t])[..., None] * s + kv
+    return torch.stack(ys, dim=1), s
 
 
 def ssd_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):

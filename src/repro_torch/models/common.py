@@ -50,6 +50,9 @@ class ModelConfig:
     ssm_expand: int = 2              # d_inner = expand * d_model
     ssm_conv: int = 4                # depthwise conv width
 
+    # RWKV6
+    rwkv_head_dim: int = 64
+
     activation: str = "swiglu"       # the only one ported
     norm_eps: float = 1e-5
     norm_type: str = "rmsnorm"       # rmsnorm | layernorm
@@ -61,6 +64,10 @@ class ModelConfig:
     @property
     def ssm_d_inner(self) -> int:
         return self.ssm_expand * self.d_model
+
+    @property
+    def num_rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
 
     def param_count(self) -> int:
         """Total parameters (exact, from the spec table)."""
@@ -75,7 +82,7 @@ class ParamSpec:
 
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"             # normal | zeros | ones | const
+    init: str = "normal"             # normal | zeros | ones | const | uniform_pm
     scale: float = 1.0
 
     def __post_init__(self):
@@ -101,6 +108,10 @@ def _init_leaf(spec: ParamSpec, dtype: torch.dtype,
         return torch.ones(spec.shape, dtype=dtype, device=dev)
     if spec.init == "const":        # constant fill with value = scale
         return torch.full(spec.shape, spec.scale, dtype=dtype, device=dev)
+    if spec.init == "uniform_pm":   # uniform in [-scale, scale]
+        u = torch.rand(spec.shape, generator=generator, device=dev,
+                       dtype=torch.float32)
+        return ((2.0 * u - 1.0) * spec.scale).to(dtype)
     if spec.init != "normal":
         raise ValueError(f"unknown initializer {spec.init!r}")
     # fan-in scaled normal over the per-layer shape (as the reference)

@@ -10,8 +10,10 @@ The counterpart of ``repro/models/model_zoo.py``::
     init_cache(cfg, batch, max_len, device) -> cache
     init_paged_pool(cfg, total_pages, page_size, device) -> page pool
 
-``dense`` and ``hymba`` are ported; the other families raise
-``NotImplementedError`` until their slice is.
+``dense``, ``hymba`` and ``rwkv6`` are ported; the other families raise
+``NotImplementedError`` until their slice is.  Only ``dense`` has a
+paged pool: hymba's is not ported yet, and rwkv6 has no leaf to page
+(its state does not grow with the context).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.models import common, hymba, transformer
+from repro_torch.models import common, hymba, rwkv6, transformer
 from repro_torch.models.common import ModelConfig, Params
 
 
@@ -36,6 +38,8 @@ _FAMILIES = {
     "dense": Family(transformer.dense_layer, transformer.param_table,
                     transformer.init_cache, transformer.init_paged_pool),
     "hymba": Family(hymba.hymba_layer, hymba.param_table, hymba.init_cache,
+                    None),
+    "rwkv6": Family(rwkv6.rwkv_layer, rwkv6.param_table, rwkv6.init_cache,
                     None),
 }
 

@@ -28,8 +28,9 @@ Prefill is bucketed as in the reference: prompts are grouped by length,
 each group runs at a power-of-two batch (the last real row repeated) on
 a fresh small dense cache whose real rows are then copied into the pool
 (into the claimed pages, when paged).  The dense family also pads each
-group to a power-of-two length; a recurrent family (hymba's SSM state)
-threads its state through every token and is never length-padded.
+group to a power-of-two length; a recurrent family (hymba's SSM state,
+rwkv6's WKV state) threads its state through every token and is never
+length-padded.
 Decode masks inactive rows, so a retired row's cache (KV rows and
 recurrent state) stays bit for bit as it was while its neighbours
 decode.  Greedy argmax happens on the host.
@@ -154,11 +155,18 @@ class Endpoint:
         self.peak_active = 0
         self.paged = bool(paged)
         self.page_size = int(page_size)
+        self._len_axes = _len_axes(cfg, max_len)
         if self.paged:
             if not (0 < page_size <= max_len) or max_len % page_size:
                 raise ValueError(
                     f"page_size must divide max_len ({max_len}), "
                     f"got {page_size}")
+            # a leaf pages iff its length axis follows the slot axis (the
+            # KV block layout); recurrent state has no length axis
+            if 2 not in self._len_axes.values():
+                raise ValueError(
+                    f"model family {cfg.family!r} has no pageable cache "
+                    "leaves (no full-context KV blocks)")
             self.pages_per_row = max_len // page_size
             if total_pages is None:
                 total_pages = slots * self.pages_per_row
@@ -198,7 +206,6 @@ class Endpoint:
         # A paged pool needs only its shapes (cache_nbytes_per_row).
         self._row_init = model_zoo.init_cache(
             cfg, 1, max_len, "meta" if self.paged else self.device)
-        self._len_axes = _len_axes(cfg, max_len)
         # Length padding is sound only for the dense family: causal
         # masking hides padded positions there, but recurrent state
         # threads through every token.  It must also stay within the

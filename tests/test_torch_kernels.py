@@ -5,8 +5,9 @@ they are held against ``repro.kernels.ops`` (the Pallas kernels in
 interpret mode, as ``tests/test_kernels.py`` runs them) and against
 ``repro.kernels.ref``, on the same inputs made with numpy from a seed.
 Tolerances are the reference's own (``tests/test_kernels.py:17-19``):
-2e-5 abs / 2e-4 rel in float32, 2e-2 in bfloat16; 1e-4 / 1e-4 for the
-selective-SSM scan (``tests/test_kernels.py:180-183``).
+2e-5 abs / 2e-4 rel in float32, 2e-2 in bfloat16; 5e-4 / 5e-3 for the
+WKV6 scan, 5e-2 with bfloat16-rounded inputs (``:137-138``); 1e-4 / 1e-4
+for the selective-SSM scan (``:180-183``).
 
 The ``gpu`` tests hold each CUDA kernel against its plain version on the
 card (the check ``chip_smoke.py`` runs), and the paged decode kernel K3
@@ -241,11 +242,14 @@ def test_cpu_tensors_take_the_plain_versions():
                                  torch.zeros((1, 1), dtype=torch.int32),
                                  pos[:, -1], pos)
     t_ops.ssd_scan(q.abs(), q, q[:, 0])
+    s0 = q[:, 0, :, :, None] * q[:, 0, :, None, :]
+    t_ops.rwkv6_scan(q, q, q, -q.abs(), q[0, 0], s0)
     assert t_ops.launches == {"flash_attention": 0, "flash_attention_plain": 1,
                               "decode_attention": 0,
                               "decode_attention_plain": 1,
                               "paged_decode_attention": 0,
                               "paged_decode_attention_plain": 1,
+                              "rwkv6_scan": 0, "rwkv6_scan_plain": 1,
                               "ssd_scan": 0, "ssd_scan_plain": 1}
     t_ops.reset_launches()
     assert set(t_ops.launches.values()) == {0}
@@ -265,6 +269,125 @@ def test_flash_attention_backward_recomputes_through_plain():
     t_ref.flash_attention(*b, pos, pos, window=5).square().sum().backward()
     for x, y in zip(a, b):
         torch.testing.assert_close(x.grad, y.grad, atol=2e-5, rtol=2e-4)
+
+
+# ---------------------------------------------------------------- K4 rwkv6_scan
+
+RWKV_TOL = {"float32": dict(atol=5e-4, rtol=5e-3),
+            "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+
+
+def _rwkv_inputs(rng, B, S, H, D, dtype_name="float32", strong_decay=False):
+    """r, k, v normal (rounded through bfloat16 for "bfloat16", then kept
+    in float32, as the model feeds the scan), lw = -0.4|normal| (or
+    -e^10 everywhere, the clip's strongest decay), u = 0.3 normal, s0 =
+    0.1 normal, as ``tests/test_kernels.py`` draws them."""
+    r, k, v = (rng.standard_normal((B, S, H, D)).astype(np.float32)
+               for _ in range(3))
+    if dtype_name == "bfloat16":
+        r, k, v = (torch.from_numpy(x).bfloat16().float().numpy()
+                   for x in (r, k, v))
+    lw = (np.full((B, S, H, D), -np.exp(10.0)) if strong_decay
+          else -0.4 * np.abs(rng.standard_normal((B, S, H, D))))
+    u = 0.3 * rng.standard_normal((H, D))
+    s0 = 0.1 * rng.standard_normal((B, H, D, D))
+    return tuple(np.asarray(x, np.float32) for x in (r, k, v, lw, u, s0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,D,chunk,strong_decay", [
+    (1, 32, 2, 8, 16, False),     # the shapes of test_rwkv6_scan_sweep
+    (2, 128, 4, 16, 32, False),
+    (2, 64, 1, 64, 64, False),
+    # lw = -e^10, the state dies every step; the reference's chunked
+    # closed form keeps float32 precision there only up to chunk 16 (at
+    # 32 its y is off by up to 1.7: cancelling sums of -e^10 log-decays)
+    (1, 64, 2, 32, 16, True),
+])
+def test_rwkv6_scan_plain_matches_reference(jax_ref, B, S, H, D, chunk,
+                                            strong_decay, dtype):
+    """ops.rwkv6_scan on CPU tensors (the plain per-token recurrence)
+    against the reference's Pallas kernel in interpret mode and its own
+    oracle."""
+    from repro.kernels import rwkv6_scan as j_rwkv
+    rng = np.random.default_rng(S + D)
+    xs = _rwkv_inputs(rng, B, S, H, D, dtype, strong_decay)
+    t_ops.reset_launches()
+    y, sf = t_ops.rwkv6_scan(*(torch.from_numpy(x) for x in xs))
+    assert t_ops.launches["rwkv6_scan_plain"] == 1
+    assert y.dtype == sf.dtype == torch.float32
+    assert y.shape == (B, S, H, D) and sf.shape == (B, H, D, D)
+    js = [jax_ref.jnp.asarray(x) for x in xs]
+    for want_y, want_s in (j_rwkv.rwkv6_scan(*js, chunk=chunk,
+                                             interpret=True),
+                           jax_ref.ref.rwkv6_scan(*js)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y),
+                                   **RWKV_TOL[dtype])
+        np.testing.assert_allclose(sf.numpy(), np.asarray(want_s),
+                                   **RWKV_TOL[dtype])
+
+
+def test_rwkv6_scan_state_carry_composes():
+    """scan(S) == scan(S/2) then scan(S/2) from the carried state, as
+    ``tests/test_kernels.py::test_rwkv6_state_carry_composes`` holds the
+    reference's kernel (the plain recurrence is the same sum in the same
+    order, so the two agree exactly)."""
+    rng = np.random.default_rng(6)
+    r, k, v, lw, u, s0 = (torch.from_numpy(x) for x in
+                          _rwkv_inputs(rng, 1, 64, 2, 8))
+    y_all, s_all = t_ops.rwkv6_scan(r, k, v, lw, u, s0)
+    h = 32
+    y1, s1 = t_ops.rwkv6_scan(r[:, :h], k[:, :h], v[:, :h], lw[:, :h], u, s0)
+    y2, s2 = t_ops.rwkv6_scan(r[:, h:], k[:, h:], v[:, h:], lw[:, h:], u, s1)
+    assert torch.equal(torch.cat([y1, y2], 1), y_all)
+    assert torch.equal(s2, s_all)
+
+
+def test_rwkv6_scan_length_rule_in_both_packages(jax_ref):
+    """S = 160 is neither <= 128 nor a multiple of the reference kernel's
+    128-token chunk: both packages' kernel paths refuse it, with the same
+    message; S = 100 (<= 128) is admitted by both."""
+    jnp = jax_ref.jnp
+    xs = _rwkv_inputs(np.random.default_rng(0), 1, 160, 1, 8)
+    msg = "seq len 160 is not divisible by chunk 128"
+    with pytest.raises(ValueError, match=msg):
+        jax_ref.ops.rwkv6_scan(*(jnp.asarray(x) for x in xs))
+    t_ops.reset_launches()
+    with pytest.raises(ValueError, match=msg):
+        t_ops.rwkv6_scan(*(torch.from_numpy(x) for x in xs))
+    assert set(t_ops.launches.values()) == {0}
+    short = [x[:, :100] if x.ndim == 4 and x.shape[1] == 160 else x
+             for x in xs]
+    y_j, _ = jax_ref.ops.rwkv6_scan(*(jnp.asarray(x) for x in short))
+    y_t, _ = t_ops.rwkv6_scan(*(torch.from_numpy(np.ascontiguousarray(x))
+                                for x in short))
+    assert y_t.shape == (1, 100, 1, 8) == tuple(y_j.shape)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j),
+                               **RWKV_TOL["float32"])
+
+
+def test_rwkv6_scan_backward_recomputes_through_plain():
+    """The autograd.Function's backward equals differentiating the plain
+    version (the reference's custom_vjp contract)."""
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(x) for x in _rwkv_inputs(rng, 2, 12, 2, 8)]
+    a = [x.clone().requires_grad_() for x in xs]
+    b = [x.clone().requires_grad_() for x in xs]
+    for fn, args in ((t_ops.rwkv6_scan, a), (t_ref.rwkv6_scan, b)):
+        y, sf = fn(*args)
+        (y.square().sum() + sf.sum()).backward()
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad, y.grad, atol=1e-6, rtol=1e-6)
+
+
+def test_rwkv6_scan_launcher_refuses_what_the_kernel_does_not_take():
+    from repro_torch.kernels import rwkv6_scan as k4
+    xs = [torch.from_numpy(x) for x in
+          _rwkv_inputs(np.random.default_rng(1), 1, 8, 2, 8)]
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.rwkv6_scan(*xs)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        t_ops.rwkv6_scan(*(x.to("meta") for x in xs))
 
 
 # ---------------------------------------------------------------- K5 ssd_scan
@@ -471,3 +594,43 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, I, N, strong_decay):
         k5.ssd_scan(a.double(), b.double(), h0.double())
     with pytest.raises(ValueError, match="shapes"):
         k5.ssd_scan(a, b[..., :1].contiguous(), h0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,D,strong_decay", [
+    (1, 512, 64, 64, False),      # rwkv6-7b's prefill
+    (4, 256, 64, 64, False),
+    (1, 1, 64, 64, False),
+    (1, 128, 64, 64, True),
+    (3, 77, 5, 64, False),        # ragged: a partial chunk of tokens
+    (2, 128, 4, 16, False),       # the reference's sweep shapes
+    (1, 32, 2, 8, False),
+    (2, 64, 3, 32, False),
+])
+def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, D, strong_decay,
+                                         dtype):
+    """K4 against its plain version within the reference's WKV tolerance
+    (5e-2 for bfloat16-rounded inputs), and the launcher's refusals of a
+    wrong dtype, shape, head dim or device."""
+    from repro_torch.kernels import rwkv6_scan as k4
+    rng = np.random.default_rng(S + D)
+    xs = [torch.from_numpy(x).to(cuda) for x in
+          _rwkv_inputs(rng, B, S, H, D, dtype, strong_decay)]
+    t_ops.reset_launches()
+    y, sf = t_ops.rwkv6_scan(*xs)
+    torch.cuda.synchronize()
+    assert t_ops.launches["rwkv6_scan"] == 1
+    want_y, want_s = t_ref.rwkv6_scan(*xs)
+    torch.testing.assert_close(y, want_y, **RWKV_TOL[dtype])
+    torch.testing.assert_close(sf, want_s, **RWKV_TOL[dtype])
+    with pytest.raises(ValueError, match="float32"):
+        k4.rwkv6_scan(*(x.double() for x in xs))
+    with pytest.raises(ValueError, match="shapes"):
+        k4.rwkv6_scan(xs[0], xs[1][..., :1].contiguous(), *xs[2:])
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.rwkv6_scan(xs[0].cpu(), *xs[1:])
+    r, k, v, lw = (torch.zeros((1, 4, 2, 24), device=cuda) for _ in range(4))
+    with pytest.raises(ValueError, match="head_dim"):
+        k4.rwkv6_scan(r, k, v, lw, torch.zeros((2, 24), device=cuda),
+                      torch.zeros((1, 2, 24, 24), device=cuda))

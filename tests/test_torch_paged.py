@@ -40,6 +40,7 @@ from repro_torch import configs as t_configs
 from repro_torch import platform as t_platform
 from repro_torch.core import topology as t_topo
 from repro_torch.kernels import ops as t_ops
+from repro_torch.models import model_zoo as t_zoo
 from repro_torch.serving.engine import Endpoint as TEndpoint
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -460,14 +461,24 @@ def test_paged_endpoint_refuses_what_is_not_ported():
     with pytest.raises(ValueError):
         TEndpoint(cfg_t, pt, max_len=32, device="cpu", paged=True,
                   page_size=8, total_pages=3)
+    # a rolling window narrower than max_len leaves no full-context leaf
+    # to page: both packages refuse the endpoint when it is built
+    cfg_j, pj = _models()[:2]
+    msg = "model family 'dense' has no pageable cache leaves"
+    with pytest.raises(ValueError, match=msg):
+        JEndpoint(dataclasses.replace(cfg_j, sliding_window=16), pj,
+                  slots=1, max_len=32, paged=True, page_size=8)
     windowed = dataclasses.replace(cfg_t, sliding_window=16)
-    ep = TEndpoint(windowed, pt, slots=1, max_len=32, device="cpu",
-                   paged=True, page_size=8)
-    toks = np.arange(5, dtype=np.int32)
-    s = ep.try_claim(tokens=toks, max_new=3)
-    first = ep.prefill_batch({s: toks})[s]
+    with pytest.raises(ValueError, match=msg):
+        TEndpoint(windowed, pt, slots=1, max_len=32, device="cpu",
+                  paged=True, page_size=8)
+    # paged decode itself refuses such a window (the reference keeps
+    # rolling-window rows per slot)
+    pool = t_zoo.init_paged_pool(windowed, 4, 8, "cpu")
     with pytest.raises(NotImplementedError, match="sliding-window"):
-        ep.decode_all({s: first})
+        t_zoo.decode(windowed, pt, pool, torch.tensor([1]),
+                     torch.tensor([5], dtype=torch.int32),
+                     page_tables=torch.zeros((1, 4), dtype=torch.int32))
 
 
 # --------------------------------------------------------------------------
