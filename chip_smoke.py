@@ -7,13 +7,20 @@ Phases, each raising on failure (the script then exits non-zero):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, in parallel) and report the build time;
+   ``nvcc`` per source, in parallel), report the build time and, per
+   instantiation, registers, spills, stack and shared memory, and for K1
+   its tensor-core instructions (``HGMMA`` in ``cuobjdump -sass``); fails
+   if K1 spills or a bfloat16 instantiation of K1 has no HGMMA;
 3. parity on the card: each kernel against its plain PyTorch version, in
    bfloat16 (2e-2) and float32 (2e-5 abs / 2e-4 rel), at the main path's
    shapes and at ragged, windowed, soft-capped and grouped-query ones,
    hymba-1.5b's attention shapes among them (25 query heads over 5 kv
-   heads, window 1024); the paged kernel K3 over shuffled pages, and
-   bitwise against K2 on the gathered view; the selective-SSM scan K5 at
+   heads, window 1024); K1 also with kv positions out of slot order,
+   with rows that see no key (exactly zero) and with a 5-token prompt;
+   K2 and K3 at shapes their launcher splits over clusters of 1, 2, 4
+   and 8 blocks (the cluster size is printed); the paged kernel K3 over
+   shuffled pages, and bitwise against K2 on the gathered view; the
+   selective-SSM scan K5 at
    hymba-1.5b's width (I=3200, N=16; S = 1, 128, 512, 1024 and a
    strong-decay case) in float32 (1e-4 abs / 1e-4 rel); the WKV6 scan K4
    at rwkv6-7b's width (H=64, D=64; S = 1, 128, 512, B=4 S=256, a ragged
@@ -65,13 +72,30 @@ Phases, each raising on failure (the script then exits non-zero):
    L2 flushed between launches) beside its bound, its plain version and a
    yardstick of PyTorch library calls (the port never calls them), printed
    as one ``{"kernels": [...]}`` line (K1 and K2 at stablelm's shapes, K3
-   at the paged tier's, K4 at rwkv6's, K5 at hymba's); K1, K2 and K5 are
-   also timed at hymba's shapes and K4 at one 512-token prompt, on lines
-   of their own.
+   at the paged tier's, K4 at rwkv6's, K5 at hymba's).  Each row also
+   gives the kernel's and the library call's time on the device alone
+   (``device_ms``, ``library_device_ms``: the card kept busy while the
+   host enqueues) and the host's time to enqueue the kernel
+   (``host_ms``); K2 and K3 rows carry the cluster size their launcher
+   ran with.  K1, K2 and K5 are also timed at hymba's
+   shapes, K4 at one 512-token prompt, and K1 at the smaller prefill
+   buckets phase 5 launched and K2 at the edge's B = 2, on lines of their
+   own.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the package beside this script, it prints no result and exits
 non-zero.
+
+    python3 chip_smoke.py --baseline DIR
+
+instead builds ``DIR/flash_attention.cu`` and ``DIR/decode_attention.cu``
+(an earlier revision's K1 and K2/K3, say from ``git show``) beside this
+checkout's and times both in one process at the main path's shapes, in
+the order baseline, new, new, baseline (events, device alone and host
+time, as in phase 6; the host time of both through direct ctypes calls,
+and the port's launcher's besides), after checking both against the
+plain versions (float32 K1 and the unsplit K2/K3 must also be bitwise
+equal to the baseline's); it prints ``[ab]`` lines and no result line.
 """
 
 from __future__ import annotations
@@ -113,17 +137,83 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def _demangle(names: list, bindir: Path) -> dict:
+    """Mangled -> short readable kernel names (``cu++filt`` of the CUDA
+    toolkit; the return type, the anonymous namespace and the parameter
+    list dropped)."""
+    try:
+        out = subprocess.run([str(bindir / "cu++filt")], input="\n".join(
+            names), capture_output=True, text=True, check=True,
+            timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return {n: n for n in names}
+
+    def short(d: str) -> str:
+        d = d.replace("(anonymous namespace)::", "").replace("<unnamed>::",
+                                                             "")
+        d = d.removeprefix("void ")
+        depth = 0
+        for i in range(len(d) - 1, -1, -1):      # the last "(...)" group
+            depth += {")": 1, "(": -1}.get(d[i], 0)
+            if d[i] == "(" and depth == 0:
+                return d[:i]
+        return d
+
+    return {n: short(d) for n, d in zip(names, out)}
+
+
+def _sass_counts(lib: Path, bindir: Path, op: str) -> dict:
+    """Mangled kernel name -> count of ``op`` instructions in its SASS."""
+    text = subprocess.run([str(bindir / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and op in line:
+            counts[cur] += 1
+    return counts
+
+
 def build_kernels() -> float:
+    """Phase 2: build every source; print, per instantiation, registers,
+    spills, stack and shared memory (ptxas) and, for K1, its tensor-core
+    instructions (``HGMMA`` in the SASS).  Fails if K1 spills or a bf16
+    instantiation of K1 has no HGMMA."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     paths = _build.build()
     secs = time.perf_counter() - t0
+    bindir = Path(_build.nvcc_path()).parent
     for name, path in paths.items():
         report = path.with_suffix(".log").read_text()
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
-        spill = sum(int(m) for m in re.findall(r"(\d+) bytes spill", report))
-        log(f"[build] {name}: {path.name}, {len(regs)} instantiations, "
-            f"registers {min(regs)}..{max(regs)}, spill bytes {spill}")
+        blocks = report.split("Compiling entry function '")[1:]
+        mangled = [b.split("'", 1)[0] for b in blocks]
+        short = _demangle(mangled, bindir)
+        hgmma = (_sass_counts(path, bindir, "HGMMA")
+                 if name == "flash_attention" else {})
+        for mname, block in zip(mangled, blocks):
+            num = {key: int(m.group(1)) if m else 0 for key, m in (
+                (key, re.search(pat, block)) for key, pat in (
+                    ("registers", r"Used (\d+) registers"),
+                    ("stack", r"(\d+) bytes stack frame"),
+                    ("smem", r"(\d+) bytes smem")))}
+            spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
+                                                    block))
+            extra = (f", HGMMA {hgmma.get(mname, 0)}"
+                     if name == "flash_attention" else "")
+            log(f"[build] {name} {short[mname]}: registers "
+                f"{num['registers']}, spill bytes {spill}, stack "
+                f"{num['stack']}, static smem {num['smem']}{extra}")
+            if name == "flash_attention" and (spill or (
+                    "flash_fwd_tc" in short[mname]
+                    and not hgmma.get(mname))):
+                raise RuntimeError(f"K1 {short[mname]}: spills {spill}, "
+                                   f"HGMMA {hgmma.get(mname, 0)}")
+        log(f"[build] {name}: {path.name}, {len(blocks)} instantiations")
     return secs
 
 
@@ -176,6 +266,13 @@ def decode_inputs(B, T, Hq, Hkv, D, dtype, gen, fill=None):
     return q, k, v, qp.cuda(), kp.cuda()
 
 
+def _launched_split(name: str) -> tuple:
+    """(cluster size, slots a block) that K2's or K3's launcher (``name``)
+    ran its last launch with."""
+    from repro_torch.kernels import decode_attention as kdec
+    return kdec.last_split[name]
+
+
 def check_close(name, got, want, dtype_name):
     import torch
     err = (got.float() - want.float()).abs().max().item()
@@ -220,6 +317,30 @@ def parity() -> None:
             log(f"[parity] K1 flash_attention {label:14s} {dname:8s} "
                 f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D} "
                 f"max_abs_err={err:.3e} ok")
+        # kv positions out of slot order (some slots empty), and queries
+        # that see no key at all (their rows must come out exactly zero)
+        for label, B, S, Hq, Hkv, D in (("shuffled", 2, 300, 8, 2, 64),
+                                         ("shuffled-d128", 1, 150, 4, 4, 128),
+                                         ("masked-rows", 2, 200, 8, 8, 32),
+                                         ("short", 1, 5, 32, 32, 64)):
+            q, k, v, qp, kp = prefill_inputs(B, S, S, Hq, Hkv, D, dt, gen)
+            if label.startswith("shuffled"):
+                kp = torch.stack([r[torch.randperm(S, generator=gen,
+                                                   device="cuda")]
+                                  for r in kp])
+                kp[:, ::7] = -1
+            if label == "masked-rows":
+                kp[:, :50] = -1
+            got = ops.flash_attention(q, k, v, qp, kp)
+            torch.cuda.synchronize()
+            want = ref.flash_attention(q, k, v, qp, kp)
+            err = check_close(f"K1 {label} {dname}", got, want, dname)
+            if label == "masked-rows" and got[:, :50].abs().max().item():
+                raise RuntimeError(f"K1 {label} {dname}: rows that see no "
+                                   f"key are not zero")
+            log(f"[parity] K1 flash_attention {label:14s} {dname:8s} "
+                f"B={B} S={S} T={S} Hq={Hq} Hkv={Hkv} D={D} "
+                f"max_abs_err={err:.3e} ok")
     k2 = [  # (label, B, T, Hq, Hkv, D, window, softcap)
         ("main", 16, 1024, 32, 32, 64, None, None),
         ("gqa4", 16, 1024, 32, 8, 64, None, None),
@@ -234,6 +355,8 @@ def parity() -> None:
         ("hymba-rolling", 16, 1024, 25, 5, 64, 1024, None),
         ("hymba-edge", 2, 1024, 25, 5, 64, 1024, None),
         ("hymba-global", 16, 2048, 25, 5, 64, None, None),
+        ("cluster2", 16, 512, 10, 10, 64, None, None),
+        ("edge", 2, 1024, 32, 32, 64, None, None),
     ]
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
@@ -241,6 +364,7 @@ def parity() -> None:
             q, k, v, qp, kp = decode_inputs(B, T, Hq, Hkv, D, dt, gen)
             got = ops.decode_attention(q, k, v, qp, kp, window=win,
                                        softcap=cap)
+            C = _launched_split("decode_attention")[0]
             torch.cuda.synchronize()
             want = ref.decode_attention(q, k, v, qp, kp, window=win,
                                         softcap=cap)
@@ -250,7 +374,7 @@ def parity() -> None:
                                    f"not zero")
             log(f"[parity] K2 decode_attention {label:13s} {dname:8s} "
                 f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} "
-                f"max_abs_err={err:.3e} ok")
+                f"cluster={C} max_abs_err={err:.3e} ok")
 
 
 def paged_inputs(B, ppr, page, Hq, Hkv, D, dtype, gen, fill=None):
@@ -311,6 +435,9 @@ def parity_paged() -> None:
         ("softcap", 8, 32, 16, 8, 8, 64, None, 30.0),
         ("page8-d16", 4, 12, 8, 4, 2, 16, 37, 20.0),
         ("page32-d128", 4, 8, 32, 8, 2, 128, None, None),
+        ("cluster2", 16, 32, 16, 10, 10, 64, None, None),
+        ("hymba", 16, 64, 16, 25, 5, 64, 1024, None),
+        ("edge", 2, 64, 16, 32, 32, 64, None, None),
     ]
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
@@ -319,6 +446,7 @@ def parity_paged() -> None:
                                                  dt, gen)
             got = ops.paged_decode_attention(q, k, v, tab, qp, kvp,
                                              window=win, softcap=cap)
+            C = _launched_split("paged_decode_attention")[0]
             torch.cuda.synchronize()
             want = ref.paged_decode_attention(q, k, v, tab, qp, kvp,
                                               window=win, softcap=cap)
@@ -335,7 +463,8 @@ def parity_paged() -> None:
                                    f"to K2 on the gathered view")
             log(f"[parity] K3 paged_decode_attention {label:11s} {dname:8s} "
                 f"B={B} ppr={ppr} page={page} Hq={Hq} Hkv={Hkv} D={D} "
-                f"max_abs_err={err:.3e} ok, == K2 on the gathered view")
+                f"cluster={C} max_abs_err={err:.3e} ok, == K2 on the "
+                f"gathered view")
 
 
 def ssd_inputs(B, S, I, N, gen, strong_decay=False):
@@ -1006,7 +1135,12 @@ def serve_rwkv6(cfg, params, shapes: dict, card: str) -> dict:
 # ---------------------------------------------------------------- phase 6
 
 
-def _time_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
+def _time_ms(fn, flush, reps: int = 30, warmup: int = 5,
+             isolate: bool = False) -> float:
+    """Median ms between CUDA events around one call of ``fn``, L2 flushed
+    before each.  Where a launch's host side outlasts the flush, the
+    events take it in too; with ``isolate`` the card is kept busy while
+    the host enqueues the call, so they time the device alone."""
     import torch
     for _ in range(warmup):
         fn()
@@ -1014,6 +1148,8 @@ def _time_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()                      # evict the inputs from L2
+        if isolate:
+            torch.cuda._sleep(200_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1022,6 +1158,32 @@ def _time_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _host_ms(fn, reps: int = 30, warmup: int = 5) -> float:
+    """Median ms the host takes to enqueue one call of ``fn`` (checks,
+    allocation, launch), while the card is busy with an earlier sleep."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)         # tens of ms of queued work
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * statistics.median(times)
+
+
+def _split_times(fn, flush, lib=None) -> dict:
+    """The kernel's device time alone and host time, and the library
+    call's device time alone, beside the rows' event times."""
+    return {"device_ms": _time_ms(fn, flush, isolate=True),
+            "host_ms": _host_ms(fn),
+            "library_device_ms": (None if lib is None else
+                                  _time_ms(lib, flush, isolate=True))}
 
 
 def _k1_row(key, launches, gen, flush, window=None) -> dict:
@@ -1040,15 +1202,20 @@ def _k1_row(key, launches, gen, flush, window=None) -> dict:
     ok = (d >= 0) & (kp[:, None, :] >= 0)         # allowed (q, kv) pairs
     if window is not None:
         ok &= d < window
-    ms = _time_ms(lambda: ops.flash_attention(q, k, v, qp, kp,
-                                              window=window), flush)
-    plain = _time_ms(lambda: ref.flash_attention(q, k, v, qp, kp,
-                                                 window=window), flush)
+    def kern():
+        return ops.flash_attention(q, k, v, qp, kp, window=window)
+
     gqa = {"enable_gqa": True} if Hq != Hkv else {}
     mask = (dict(is_causal=True) if window is None or S <= window
             else dict(attn_mask=ok[:, None]))
-    lib = _time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, **mask, **gqa), flush)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, **mask, **gqa)
+
+    ms = _time_ms(kern, flush)
+    plain = _time_ms(lambda: ref.flash_attention(q, k, v, qp, kp,
+                                                 window=window), flush)
+    lib = _time_ms(sdpa, flush)
     flops = 4.0 * int(ok.sum().item()) * Hq * D    # QK^T and P.V
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2 \
         + (qp.numel() + kp.numel()) * 4
@@ -1060,7 +1227,7 @@ def _k1_row(key, launches, gen, flush, window=None) -> dict:
         "launches": launches["flash_attention"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib,
+        "library_ms": lib, **_split_times(kern, flush, sdpa),
         "shape": f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16"
                  + ("" if window is None else f" window={window}")}
 
@@ -1079,6 +1246,7 @@ def _k2_row(key, launches, gen, flush, prompts, window=None):
     q, k, v, qp, kp = decode_inputs(B, T, Hq, Hkv, D, torch.bfloat16, gen,
                                     fill=fill)
     got = ops.decode_attention(q, k, v, qp, kp, window=window)
+    C = _launched_split("decode_attention")[0]
     want = ref.decode_attention(q, k, v, qp, kp, window=window)
     err = check_close("K2 timing inputs", got, want, "bfloat16")
     qh = q[:, :, None].contiguous()                       # (B,H,1,D)
@@ -1087,13 +1255,19 @@ def _k2_row(key, launches, gen, flush, prompts, window=None):
     if window is not None:
         ok &= qp[:, None] - kp < window
     mask = ok[:, None, None, :]
-    ms = _time_ms(lambda: ops.decode_attention(q, k, v, qp, kp,
-                                               window=window), flush)
+    def kern():
+        return ops.decode_attention(q, k, v, qp, kp, window=window)
+
+    gqa = {"enable_gqa": True} if Hq != Hkv else {}
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              **gqa)
+
+    ms = _time_ms(kern, flush)
     plain = _time_ms(lambda: ref.decode_attention(q, k, v, qp, kp,
                                                   window=window), flush)
-    gqa = {"enable_gqa": True} if Hq != Hkv else {}
-    lib = _time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask, **gqa), flush)
+    lib = _time_ms(sdpa, flush)
     valid = int(ok.sum().item())
     nbytes = (q.numel() + got.numel()) * 2 + valid * Hkv * D * 2 * 2 \
         + (qp.numel() + kp.numel()) * 4            # only live slots are read
@@ -1106,7 +1280,7 @@ def _k2_row(key, launches, gen, flush, prompts, window=None):
         "launches": launches["decode_attention"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib,
+        "library_ms": lib, **_split_times(kern, flush, sdpa), "cluster": C,
         "shape": f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 "
                  f"live_slots={valid}"
                  + ("" if window is None else f" window={window}")}, fill
@@ -1125,7 +1299,10 @@ def _k5_row(key, launches, gen, flush) -> dict:
     torch.testing.assert_close(hf, want_hf, atol=1e-4, rtol=1e-4)
     err = max((hs - want_hs).abs().max().item(),
               (hf - want_hf).abs().max().item())
-    ms = _time_ms(lambda: ops.ssd_scan(a, b, h0), flush)
+    def kern():
+        return ops.ssd_scan(a, b, h0)
+
+    ms = _time_ms(kern, flush)
     plain = _time_ms(lambda: ref.ssd_scan(a, b, h0), flush, reps=10,
                      warmup=2)
     nbytes = (a.numel() + b.numel() + hs.numel()
@@ -1139,7 +1316,7 @@ def _k5_row(key, launches, gen, flush) -> dict:
         "launches": launches["ssd_scan"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
+        "library_ms": None, **_split_times(kern, flush),
         "library": "none (no PyTorch call computes the recurrence)",
         "shape": f"B={B} S={S} I={I} N={N} float32"}
 
@@ -1153,7 +1330,10 @@ def _k4_row(key, launches, gen, flush) -> dict:
     xs = rwkv_inputs(B, S, H, D, gen)
     got = ops.rwkv6_scan(*xs)
     err = _rwkv_close("timing inputs", got, ref.rwkv6_scan(*xs), "float32")
-    ms = _time_ms(lambda: ops.rwkv6_scan(*xs), flush)
+    def kern():
+        return ops.rwkv6_scan(*xs)
+
+    ms = _time_ms(kern, flush)
     plain = _time_ms(lambda: ref.rwkv6_scan(*xs), flush, reps=10, warmup=2)
     y, s_final = got
     # read r, k, v, lw, u, s0 once; write y and s_final once
@@ -1167,7 +1347,7 @@ def _k4_row(key, launches, gen, flush) -> dict:
         "launches": launches["rwkv6_scan"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
+        "library_ms": None, **_split_times(kern, flush),
         "library": "none: no PyTorch call computes the WKV6 recurrence",
         "shape": f"B={B} S={S} H={H} D={D} float32"}
 
@@ -1188,7 +1368,8 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
            rw_launches: dict) -> tuple:
     """Phase 6.  Returns (the kernels' rows: K1, K2 at stablelm's main
     path, K3 at the paged tier's, K4 at rwkv6's, K5 at hymba's; K1, K2
-    and K5 at hymba's shapes; K4 at one 512-token prompt)."""
+    and K5 at hymba's shapes; K4 at one 512-token prompt; K1 at the
+    smaller prefill buckets and K2 at the edge's B = 2)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -1213,6 +1394,7 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
     q, kpg, vpg, tab, qp, kvp = paged_inputs(B, ppr, page, Hq, Hkv, D,
                                              torch.bfloat16, gen, fill=fill)
     got = ops.paged_decode_attention(q, kpg, vpg, tab, qp, kvp)
+    C = _launched_split("paged_decode_attention")[0]
     want = ref.paged_decode_attention(q, kpg, vpg, tab, qp, kvp)
     err = check_close("K3 timing inputs", got, want, "bfloat16")
     kd, vd, kpd = gathered(kpg, vpg, tab, kvp)
@@ -1235,8 +1417,10 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
 
     lib_out = gather_sdpa()[:, :, 0]
     check_close("K3 yardstick", lib_out, want, "bfloat16")
-    ms = _time_ms(lambda: ops.paged_decode_attention(q, kpg, vpg, tab, qp,
-                                                     kvp), flush)
+    def kern():
+        return ops.paged_decode_attention(q, kpg, vpg, tab, qp, kvp)
+
+    ms = _time_ms(kern, flush)
     plain = _time_ms(lambda: ref.paged_decode_attention(q, kpg, vpg, tab,
                                                         qp, kvp), flush)
     lib = _time_ms(gather_sdpa, flush)
@@ -1252,8 +1436,9 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
         "launches": launches["paged_decode_attention"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib,
+        "library_ms": lib, **_split_times(kern, flush, gather_sdpa),
         "library": "2x index_select + scaled_dot_product_attention",
+        "cluster": C,
         "shape": f"B={B} ppr={ppr} page={page} Hq={Hq} Hkv={Hkv} D={D} "
                  f"bf16 live_slots={valid} pool_pages={kpg.shape[0]}"})
     # K4 at the shape the rwkv6 main path launched it at most
@@ -1281,16 +1466,208 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
     hy_rows.append(_k5_row(((1, 512, I, N), None), hy_launches, gen, flush))
     ((_, _, H, D),) = k4_key
     rw_rows = [_k4_row(((1, 512, H, D),), rw_launches, gen, flush)]
+    # K1 at every smaller prefill bucket phase 5 launched, and K2 at the
+    # edge tier's B = 2 (stablelm, and hymba's rolling cache)
+    more = [_k1_row(max((s for s in shapes["K1"] if s[0][1] == S),
+                        key=lambda s: shapes["K1"][s]), launches, gen, flush)
+            for S in sorted({s[0][1] for s in shapes["K1"]})[:-1]]
+    more.append(_k2_row(min(shapes["K2"], key=lambda s: (
+        s[0][0], -shapes["K2"][s])), launches, gen, flush,
+        _stablelm_prompts)[0])
+    more.append(_k2_row(min((s for s in hy_shapes["K2"]
+                             if s[1][1] == window), key=lambda s: (
+        s[0][0], -hy_shapes["K2"][s])), hy_launches, gen, flush,
+        _scan_prompts, window)[0])
     for tag, rs in (("time", rows), ("time-hymba", hy_rows),
-                    ("time-rwkv6", rw_rows)):
+                    ("time-rwkv6", rw_rows), ("time-more", more)):
         for r in rs:
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
+            cl = f", cluster {r['cluster']}" if "cluster" in r else ""
             log(f"[{tag}] {r['name']} {r['shape']}: kernel {r['ms']:.4f} "
-                f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-                f"{r['plain_ms']:.4f} ms, library {lib}, launches "
-                f"{r['launches']}")
-    return rows, hy_rows, rw_rows
+                f"ms (device alone {r['device_ms']:.4f} ms, host "
+                f"{r['host_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
+                f"{lib}, launches {r['launches']}{cl}")
+    return rows, hy_rows, rw_rows, more
+
+
+# ------------------------------------------------------- --baseline DIR
+
+
+def baseline_ab(base: Path) -> list:
+    """K1, K2 and K3 of this checkout against the same kernels built from
+    ``base/flash_attention.cu`` and ``base/decode_attention.cu`` (an
+    earlier revision's sources), in this one process on this one card.
+    Each shape is timed baseline, new, new, baseline, three ways (events
+    around the call, the device alone, the host's enqueue; L2 flushed)
+    after both are checked against the plain version.  The float32 K1
+    and the C = 1 K2/K3 launches must be bitwise equal to the
+    baseline's.  A baseline ``decode_attention.cu`` whose entry points
+    take no ``cluster``/``span`` arguments is called without them."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build, ops, ref
+    names = ("flash_attention", "decode_attention")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+    def direct(csrc: Path) -> tuple:
+        """K1, K2 and K3 of the libraries built from ``csrc``, called
+        straight through ctypes: one host path for both revisions."""
+        lib = {n: ctypes.CDLL(str(p))
+               for n, p in _build.build(names, csrc=csrc).items()}
+        split_abi = "int cluster" in (csrc / "decode_attention.cu").read_text()
+        extra = [I, I] if split_abi else []
+        fa = lib["flash_attention"].repro_flash_attention
+        fa.argtypes, fa.restype = [P] * 6 + [I] * 9 + [F, F, P], I
+        dec = lib["decode_attention"].repro_decode_attention
+        dec.argtypes = [P] * 6 + [I] * 7 + [F, F] + extra + [P]
+        pdec = lib["decode_attention"].repro_paged_decode_attention
+        pdec.argtypes = [P] * 7 + [I] * 8 + [F, F] + extra + [P]
+        dec.restype = pdec.restype = I
+
+        def call(fn, tensors, ints, D, window, name, out):
+            # a split entry point gets the (C, span) the port's launcher
+            # last ran with: ``ab`` launches it first
+            stream = torch.cuda.current_stream().cuda_stream
+            win = -1 if window is None else window
+            more = [_launched_split(name)] if split_abi else []
+            err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), *ints,
+                     win, 0.0, D ** -0.5, *(x for cs in more for x in cs),
+                     stream)
+            if err:
+                raise RuntimeError(f"{csrc}: launch failed: CUDA error {err}")
+            return out
+
+        def k1(q, k, v, qp, kp, window=None):
+            B, S, Hq, D = q.shape
+            T, Hkv = k.shape[1:3]
+            out = torch.empty_like(q)
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fa(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
+                     kp.data_ptr(), out.data_ptr(), B, S, T, Hq, Hkv, D,
+                     int(q.dtype == torch.bfloat16), 1,
+                     -1 if window is None else window, 0.0, D ** -0.5,
+                     stream)
+            if err:
+                raise RuntimeError(f"{csrc}: K1 failed: CUDA error {err}")
+            return out
+
+        def k2(q, k, v, qp, kp, window=None):
+            B, Hq, D = q.shape
+            T, Hkv = k.shape[1:3]
+            return call(dec, (q, k, v, qp, kp),
+                        (B, T, Hq, Hkv, D, int(q.dtype == torch.bfloat16)),
+                        D, window, "decode_attention", torch.empty_like(q))
+
+        def k3(q, kpg, vpg, tab, qp, kvp, window=None):
+            B, Hq, D = q.shape
+            page, Hkv = kpg.shape[1:3]
+            ppr = tab.shape[1]
+            return call(pdec, (q, kpg, vpg, tab, qp, kvp),
+                        (B, ppr, page, Hq, Hkv, D,
+                         int(q.dtype == torch.bfloat16)), D, window,
+                        "paged_decode_attention", torch.empty_like(q))
+
+        return k1, k2, k3
+
+    new_k1, new_k2, new_k3 = direct(_build.CSRC)
+    old_k1, old_k2, old_k3 = direct(base)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    cpu = torch.Generator().manual_seed(2)
+    rows = []
+
+    def ab(label, new_fn, old_fn, direct_fn, want, dname="bfloat16",
+           bitwise=False):
+        """``new_fn`` goes through the port's launcher, ``old_fn`` and
+        ``direct_fn`` (the new library) straight through ctypes.  Times
+        ms and device_ms of old vs new_fn, host_ms of old vs direct_fn
+        (the libraries' own host side) and, once, of new_fn (the port's
+        launcher as a whole)."""
+        got_new, got_old, got_direct = new_fn(), old_fn(), direct_fn()
+        torch.cuda.synchronize()
+        check_close(f"{label} (new)", got_new, want, dname)
+        check_close(f"{label} (baseline)", got_old, want, dname)
+        if not torch.equal(got_new, got_direct):
+            raise RuntimeError(f"{label}: the launcher and a direct call "
+                               f"disagree")
+        if bitwise and not torch.equal(got_new, got_old):
+            raise RuntimeError(f"{label}: not bitwise equal to the baseline")
+        row = {"label": label, "bitwise_equal": bitwise or None}
+        for key, timer, new in (
+                ("ms", lambda f: _time_ms(f, flush), new_fn),
+                ("device_ms", lambda f: _time_ms(f, flush, isolate=True),
+                 new_fn),
+                ("host_ms", _host_ms, direct_fn)):
+            t = [timer(fn) for fn in (old_fn, new, new, old_fn)]
+            row[f"baseline_{key}"], row[f"new_{key}"] = [t[0], t[3]], t[1:3]
+            log(f"[ab] {label} {key}: baseline {t[0]:.5f} / {t[3]:.5f}, "
+                f"new {t[1]:.5f} / {t[2]:.5f}, ratio "
+                f"{(t[0] + t[3]) / (t[1] + t[2]):.2f}x"
+                + (", bitwise equal" if bitwise else ""))
+        row["launcher_host_ms"] = _host_ms(new_fn)
+        log(f"[ab] {label} launcher_host_ms: {row['launcher_host_ms']:.5f}")
+        rows.append(row)
+
+    # K1: stablelm's prefill buckets, hymba's longest window prefill; and
+    # float32 (the CUDA-core body) bitwise equal to the baseline's
+    for label, B, S, Hq, Hkv, window, dt in (
+            ("K1 stablelm S=512", 1, 512, 32, 32, None, torch.bfloat16),
+            ("K1 stablelm S=256", 1, 256, 32, 32, None, torch.bfloat16),
+            ("K1 stablelm S=128", 1, 128, 32, 32, None, torch.bfloat16),
+            ("K1 hymba S=1024", 1, 1024, 25, 5, 1024, torch.bfloat16),
+            ("K1 float32 S=512", 1, 512, 32, 32, None, torch.float32),
+            ("K1 float32 ragged window", 2, 200, 8, 2, 64, torch.float32)):
+        q, k, v, qp, kp = prefill_inputs(B, S, S, Hq, Hkv, 64, dt, gen)
+        f32 = dt == torch.float32
+        ab(label,
+           lambda: ops.flash_attention(q, k, v, qp, kp, window=window),
+           lambda: old_k1(q, k, v, qp, kp, window),
+           lambda: new_k1(q, k, v, qp, kp, window),
+           ref.flash_attention(q, k, v, qp, kp, window=window),
+           "float32" if f32 else "bfloat16", bitwise=f32)
+
+    # K2: stablelm's cloud (C = 1, bitwise) and edge steps, hymba's cloud
+    # steps on both cache widths and its edge step; K3 at stablelm's
+    # paged cloud step (C = 1, bitwise)
+    for label, B, T, Hq, Hkv, window, prompts, dt in (
+            ("K2 stablelm B=16", 16, 1024, 32, 32, None, _stablelm_prompts,
+             torch.bfloat16),
+            ("K2 stablelm B=16 float32", 16, 1024, 32, 32, None,
+             _stablelm_prompts, torch.float32),
+            ("K2 stablelm edge B=2", 2, 1024, 32, 32, None,
+             _stablelm_prompts, torch.bfloat16),
+            ("K2 hymba rolling B=16", 16, 1024, 25, 5, 1024, _scan_prompts,
+             torch.bfloat16),
+            ("K2 hymba global B=16", 16, 2048, 25, 5, None, _scan_prompts,
+             torch.bfloat16),
+            ("K2 hymba edge B=2", 2, 1024, 25, 5, 1024, _scan_prompts,
+             torch.bfloat16)):
+        fill = (prompts(B, cpu) + torch.randint(1, 33, (B,), generator=cpu)
+                ).clamp(max=T).tolist()
+        q, k, v, qp, kp = decode_inputs(B, T, Hq, Hkv, 64, dt, gen,
+                                        fill=fill)
+        ops.decode_attention(q, k, v, qp, kp, window=window)
+        c = _launched_split("decode_attention")[0]
+        f32 = dt == torch.float32
+        ab(f"{label} C={c}",
+           lambda: ops.decode_attention(q, k, v, qp, kp, window=window),
+           lambda: old_k2(q, k, v, qp, kp, window),
+           lambda: new_k2(q, k, v, qp, kp, window),
+           ref.decode_attention(q, k, v, qp, kp, window=window),
+           "float32" if f32 else "bfloat16", bitwise=c == 1)
+        if label == "K2 stablelm B=16":
+            q, kpg, vpg, tab, qp, kvp = paged_inputs(
+                B, T // 16, 16, Hq, Hkv, 64, dt, gen, fill=fill)
+            ab(f"K3 stablelm B=16 C={c}",
+               lambda: ops.paged_decode_attention(q, kpg, vpg, tab, qp, kvp),
+               lambda: old_k3(q, kpg, vpg, tab, qp, kvp),
+               lambda: new_k3(q, kpg, vpg, tab, qp, kvp),
+               ref.paged_decode_attention(q, kpg, vpg, tab, qp, kvp),
+               bitwise=c == 1)
+    return rows
 
 
 # ---------------------------------------------------------------- main
@@ -1314,6 +1691,11 @@ def main() -> int:
     log(f"[card] {card}")
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    if len(sys.argv) == 3 and sys.argv[1] == "--baseline":
+        rows = baseline_ab(Path(sys.argv[2]).resolve())
+        log(f"[ab] {json.dumps({'card': card, 'rows': rows})}")
+        log(f"[done] {time.perf_counter() - t_start:.1f}s")
+        return 0
     log(f"[build] kernels built in {build_kernels():.1f}s")
     parity()
     parity_paged()
@@ -1344,11 +1726,12 @@ def main() -> int:
     rw_launches = serve_rwkv6(rcfg, rparams, rw_shapes, card)
     del rparams
     torch.cuda.empty_cache()
-    rows, hy_rows, rw_rows = timing(shapes, launches, hy_shapes, hy_launches,
-                                    hcfg.sliding_window, rw_shapes,
-                                    rw_launches)
+    rows, hy_rows, rw_rows, more = timing(shapes, launches, hy_shapes,
+                                          hy_launches, hcfg.sliding_window,
+                                          rw_shapes, rw_launches)
     log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")
     log(f"[time-rwkv6] {json.dumps({'kernels_at_rwkv6_512': rw_rows})}")
+    log(f"[time-more] {json.dumps({'buckets_and_edge': more})}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use, by ``nvcc`` alone, into its own shared library::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o <name>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v --split-compile=0 \\
+         -o <name>.so csrc/<name>.cu
 
 The libraries go to ``build/repro_torch_kernels/`` at the repository root
 (listed in ``.gitignore``), named by a hash of the source and the flags,
@@ -32,7 +33,8 @@ SOURCES: Tuple[str, ...] = ("flash_attention", "decode_attention",
                             "rwkv6_scan", "ssd_scan")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--split-compile=0")     # optimise a source's kernels on every core
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -52,19 +54,21 @@ def nvcc_path() -> str:
         "CUDA kernels of repro_torch are compiled at first use")
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (keyed by source and flags)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where ``<csrc>/<name>.cu`` builds to (keyed by source and flags)."""
+    src = (csrc / f"{name}.cu").read_bytes()
     key = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
-    """Compile every named source that is not built yet, in parallel (one
-    ``nvcc`` per source, all started together).  Returns name -> library
-    path; raises with the compiler's output if any build fails."""
+def build(names: Iterable[str] = SOURCES,
+          csrc: Path = CSRC) -> Dict[str, Path]:
+    """Compile every named source of ``csrc`` that is not built yet, in
+    parallel (one ``nvcc`` per source, all started together).  Returns
+    name -> library path; raises with the compiler's output if any build
+    fails."""
     names = list(names)
-    out = {n: library_path(n) for n in names}
+    out = {n: library_path(n, csrc) for n in names}
     todo = [n for n in names if not out[n].is_file()]
     if not todo:
         return out
@@ -73,7 +77,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     procs: List[Tuple[str, Path, subprocess.Popen]] = []
     for n in todo:
         tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{n}.cu")]
         procs.append((n, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []

@@ -28,6 +28,14 @@ def float_inputs(what: str, q, k, v) -> int:
     return DTYPES[q.dtype]
 
 
+def aligned16(what: str, *tensors: torch.Tensor) -> None:
+    """The kernels read q/k/v with 16-byte vector loads or TMA copies."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: q/k/v must be 16-byte aligned for "
+                             f"the kernel's vector loads and TMA copies")
+
+
 def positions(what: str, *pos: torch.Tensor) -> None:
     for p in pos:
         if p.dtype != torch.int32:

@@ -23,33 +23,54 @@
 //     slot = pg*page + t%page.  A short row's table is padded with a null
 //     page whose positions are all -1, so its slots are masked like the
 //     empty slots of a dense row.
-// Everything else (which row group takes which slot, the skip of a masked
-// slot, the trip count, the merge) is shared, so K3 on a pool does the
-// same float operations in the same order as K2 on the gathered
-// contiguous view: the two are bitwise equal, as the TPU kernels are.
-// Page ids are not checked on the device: the engine keeps every table
-// entry in [0, P].
+// Everything else (the split of the slots, which row group takes which
+// slot, the skip of a masked slot, the trip count, both merges) is shared
+// and depends on T alone, so K3 on a pool does the same float operations
+// in the same order as K2 on the gathered contiguous view: the two are
+// bitwise equal, as the TPU kernels are.  Page ids are not checked on the
+// device: the engine keeps every table entry in [0, P].
 //
 // Bound on an H100: decode is memory-bound.  Each call reads the live
 // slots' K and V (2*Hkv*D values per slot) once, plus q, the positions
 // and (K3) the page table, and does about 4 flops per value, far below
-// the 295 flop/byte ridge, so the floor is those bytes / 3.35 TB/s.
+// the 295 flop/byte ridge, so the floor is those bytes / 3.35 TB/s.  At
+// the main path's sizes (a few MB a call) what sets the pace is how many
+// loads are in flight across the card: latency, not the roof.
 //
-// Design: one block per (b, kv head, chunk of up to 8 query heads), so a
-// cache row is read once for all the query heads that share it (MHA,
-// G = 1, is the common case on the main path; nothing assumes G >= 16).
-// The TPU kernel's sequential kv grid axis becomes a loop inside the
-// block.  Each cache row is streamed with one 16-byte load per thread
-// (D*bytes/16 neighbouring threads per row, so a warp reads several rows
-// at once, coalesced); the row's dot product is reduced with warp
-// shuffles and every row group keeps its own online-softmax state in
-// registers.  A slot that fails the mask is not read at all, so empty
-// and future slots of the rolling cache (and null pages) cost no
-// bandwidth.  The row groups' partial states are merged through shared
-// memory at the end.  With bf16 and D = 64 one loop iteration covers 16
-// slots: one page at page_size 16.  Later work: split-K over T (more
-// blocks for small B) and, for K3, TMA loads of whole pages.
+// Design: a unit of work is (b, kv head, chunk of up to 8 query heads), so
+// a cache row is read once for all the query heads that share it (MHA,
+// G = 1, is the common case; nothing assumes G >= 16).  Each unit's T
+// slots are split over a thread-block cluster of C blocks (C in 1, 2, 4,
+// 8, chosen by the launcher, `kernels/decode_attention.py`, so that about
+// two blocks per SM run while each block keeps >= 128 slots): block r of
+// the cluster walks slots [r*span, (r+1)*span), span a multiple of 64
+// slots (of every step below, and of page sizes 16, 32 and 64).  Inside a
+// block the TPU kernel's sequential kv grid axis is a loop: each cache
+// row is streamed with one 16-byte load per thread (D*bytes/16
+// neighbouring threads per row, so a warp reads several rows at once,
+// coalesced), the row's dot product is reduced with warp shuffles and
+// every row group keeps its own online-softmax state in registers.  At
+// these sizes the kernel waits on load latency, so steps go in batches of
+// four: a batch's K/V loads (raw 16-byte registers) are all issued before
+// its arithmetic, and the next batch's slot positions are read while it
+// computes.  A slot that fails the mask is not read at all, so empty and
+// future slots of the rolling cache (and null pages) cost no bandwidth,
+// and a warp skips a step in which none of its slots is live.  A block
+// serves the G query heads of its kv head (up to 8, so G > 8 takes
+// several chunks); its state is sized for 1, 2, 4, 5 or 8 heads, the
+// smallest that holds them, so hymba's G = 5 carries no padding heads'
+// registers.  The row groups' partial states are merged through
+// shared memory; with C > 1 each block leaves its partial (m, l, acc)
+// there and, after a cluster barrier, rank 0 merges the C partials through
+// distributed shared memory in rank order and writes the output: one
+// launch, no global scratch, a deterministic result.  A block whose range
+// holds no live slot contributes m = -1e30, l = 0, acc = 0, and the merge
+// keeps the `alive`/`max(l, 1e-30)` guards, so an all-empty row is still
+// exactly zero.  With C = 1 (no cluster launch) the output is written as
+// before the split, bit for bit.  With bf16 and D = 64 one step covers 16
+// slots: one page at page_size 16.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -71,6 +92,8 @@ struct Params {
   void* out;
   int B, T, Hq, Hkv;
   int ppr, page;          // paged only: T = ppr * page
+  int cluster;            // blocks per unit of work (a cluster), 1..8
+  int span;               // slots per block of a cluster
   int window;     // < 0: no window
   float softcap;  // <= 0: no softcap
   float scale;
@@ -83,12 +106,18 @@ struct Vec;
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* o) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
+  using Raw = float4;
+  __device__ __forceinline__ static Raw raw(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  __device__ __forceinline__ static void widen(const Raw& x, float* o) {
     o[0] = x.x;
     o[1] = x.y;
     o[2] = x.z;
     o[3] = x.w;
+  }
+  __device__ __forceinline__ static void load(const float* p, float* o) {
+    widen(raw(p), o);
   }
   __device__ __forceinline__ static float store_cvt(float x) { return x; }
 };
@@ -96,16 +125,22 @@ struct Vec<float> {
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* o) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  using Raw = uint4;
+  __device__ __forceinline__ static Raw raw(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ static void widen(const Raw& x, float* o) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(h[i]);
       o[2 * i] = f.x;
       o[2 * i + 1] = f.y;
     }
+  }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* o) {
+    widen(raw(p), o);
   }
   __device__ __forceinline__ static __nv_bfloat16 store_cvt(float x) {
     return __float2bfloat16(x);
@@ -129,6 +164,21 @@ struct PagedRows {
   }
 };
 
+// The position of slot t of row b (and, through `slot`, where it lives),
+// or -1 past the block's last slot t1.
+template <typename Rows>
+__device__ __forceinline__ int position(const Params& p, int b, int t, int t1,
+                                        size_t& slot) {
+  if (t >= t1) return -1;
+  slot = Rows::slot(p, b, t);
+  return p.kv_pos[slot];
+}
+
+__device__ __forceinline__ bool passes(int qp, int kp, int window) {
+  const int d = qp - kp;
+  return kp >= 0 && d >= 0 && (window < 0 || d < window);
+}
+
 template <typename T, int D, int GC, typename Rows>
 __global__ void __launch_bounds__(kWarps * 32) decode_fwd(Params p) {
   constexpr int VEC = Vec<T>::N;
@@ -136,9 +186,12 @@ __global__ void __launch_bounds__(kWarps * 32) decode_fwd(Params p) {
   constexpr int RPW = 32 / TPR;        // cache rows per warp per step
   constexpr int NGRP = kWarps * RPW;   // row groups per block
   static_assert(TPR >= 1 && TPR <= 32 && 32 % TPR == 0, "bad D");
+  static_assert(64 % NGRP == 0, "a split must start on a step");
+  using Raw = typename Vec<T>::Raw;
   __shared__ float sm_m[NGRP][GC];
   __shared__ float sm_l[NGRP][GC];
   __shared__ float sm_acc[NGRP][GC][D];
+  __shared__ float part_m[GC], part_l[GC], part_acc[GC][D];  // C > 1
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -146,9 +199,14 @@ __global__ void __launch_bounds__(kWarps * 32) decode_fwd(Params p) {
   const int grp = warp * RPW + lane / TPR;    // this thread's row group
   const int G = p.Hq / p.Hkv;
   const int nchunk = (G + GC - 1) / GC;
-  const int hk = blockIdx.x / nchunk;
-  const int g0 = (blockIdx.x % nchunk) * GC;
+  const int C = p.cluster;
+  const int rank = blockIdx.x % C;            // the block's cluster rank
+  const int unit = blockIdx.x / C;
+  const int hk = unit / nchunk;
+  const int g0 = (unit % nchunk) * GC;
   const int b = blockIdx.y;
+  const int t0 = min(rank * p.span, p.T);     // this block's slots
+  const int t1 = min(t0 + p.span, p.T);
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
@@ -177,49 +235,69 @@ __global__ void __launch_bounds__(kWarps * 32) decode_fwd(Params p) {
     for (int e = 0; e < VEC; ++e) acc[gi][e] = 0.f;
   }
 
+  const int heads = min(GC, G - g0);          // live heads of the chunk
   const int qp = p.q_pos[b];
+  const size_t koff = (size_t)hk * D + sub * VEC;
+  const size_t kstride = (size_t)p.Hkv * D;
+  // Steps go in batches of U: a batch's K/V loads are all issued before
+  // its arithmetic, and the next batch's slot positions are read while
+  // it computes, so a thread keeps up to 2U 16-byte loads in flight.
+  constexpr int U = 4;
+  int kp[U];
+  size_t slot[U] = {};
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    kp[u] = position<Rows>(p, b, t0 + u * NGRP + grp, t1, slot[u]);
+  }
   // Uniform trip count across the block: every lane reaches the shuffles.
-  for (int base = 0; base < p.T; base += NGRP) {
-    const int t = base + grp;
-    bool ok = false;
-    size_t slot = 0;
-    if (t < p.T) {
-      slot = Rows::slot(p, b, t);
-      const int kp = p.kv_pos[slot];
-      const int d = qp - kp;
-      ok = kp >= 0 && d >= 0 && (p.window < 0 || d < p.window);
-    }
-    float kf[VEC], vf[VEC];
-    if (ok) {
-      const size_t off = (slot * p.Hkv + hk) * D + sub * VEC;
-      Vec<T>::load(k + off, kf);
-      Vec<T>::load(v + off, vf);
-    } else {
+  for (int base = t0; base < t1; base += U * NGRP) {
+    bool ok[U];
+    Raw kr[U], vr[U];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) kf[e] = vf[e] = 0.f;
-    }
-#pragma unroll
-    for (int gi = 0; gi < GC; ++gi) {
-      float dot = 0.f;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) dot = fmaf(qr[gi][e], kf[e], dot);
-#pragma unroll
-      for (int o = TPR / 2; o > 0; o >>= 1) {
-        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    for (int u = 0; u < U; ++u) {
+      ok[u] = passes(qp, kp[u], p.window);
+      kr[u] = vr[u] = Raw{};
+      if (ok[u]) {
+        kr[u] = Vec<T>::raw(k + slot[u] * kstride + koff);
+        vr[u] = Vec<T>::raw(v + slot[u] * kstride + koff);
       }
-      if (ok) {
-        float s = dot;
-        if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-        const float m_new = fmaxf(m[gi], s);
-        const bool alive = m_new > kNegInf * 0.5f;
-        const float pr = alive ? expf(s - m_new) : 0.f;
-        const float corr = alive ? expf(m[gi] - m_new) : 1.f;
+    }
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          acc[gi][e] = fmaf(acc[gi][e], corr, pr * vf[e]);
+    for (int u = 0; u < U; ++u) {
+      kp[u] = position<Rows>(p, b, base + (U + u) * NGRP + grp, t1, slot[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      // A warp whose slots of this step are all masked skips the step (it
+      // would change no state); so do the padding heads of a chunk.
+      if (!__any_sync(0xffffffffu, ok[u])) continue;
+      float kf[VEC], vf[VEC];
+      Vec<T>::widen(kr[u], kf);
+      Vec<T>::widen(vr[u], vf);
+#pragma unroll
+      for (int gi = 0; gi < GC; ++gi) {
+        if (gi >= heads) break;
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) dot = fmaf(qr[gi][e], kf[e], dot);
+#pragma unroll
+        for (int o = TPR / 2; o > 0; o >>= 1) {
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
         }
-        l[gi] = l[gi] * corr + pr;
-        m[gi] = m_new;
+        if (ok[u]) {
+          float s = dot;
+          if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
+          const float m_new = fmaxf(m[gi], s);
+          const bool alive = m_new > kNegInf * 0.5f;
+          const float pr = alive ? expf(s - m_new) : 0.f;
+          const float corr = alive ? expf(m[gi] - m_new) : 1.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            acc[gi][e] = fmaf(acc[gi][e], corr, pr * vf[e]);
+          }
+          l[gi] = l[gi] * corr + pr;
+          m[gi] = m_new;
+        }
       }
     }
   }
@@ -248,25 +326,93 @@ __global__ void __launch_bounds__(kWarps * 32) decode_fwd(Params p) {
       L = fmaf(sm_l[r][gi], w, L);
       o = fmaf(sm_acc[r][gi][dc], w, o);
     }
-    out[((size_t)b * p.Hq + hk * G + g) * D + dc] =
-        Vec<T>::store_cvt(o / fmaxf(L, 1e-30f));
+    if (C == 1) {
+      out[((size_t)b * p.Hq + hk * G + g) * D + dc] =
+          Vec<T>::store_cvt(o / fmaxf(L, 1e-30f));
+    } else {
+      part_acc[gi][dc] = o;
+      if (dc == 0) {
+        part_m[gi] = M;
+        part_l[gi] = L;
+      }
+    }
   }
+  if (C == 1) return;
+
+  // merge the cluster's C partial states on rank 0, in rank order
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();                     // every partial is in shared memory
+  if (rank == 0) {
+    for (int idx = tid; idx < GC * D; idx += kWarps * 32) {
+      const int gi = idx / D, dc = idx % D;
+      const int g = g0 + gi;
+      if (g >= G) continue;
+      float M = kNegInf;
+      for (int r = 0; r < C; ++r) {
+        M = fmaxf(M, *cluster.map_shared_rank(&part_m[gi], r));
+      }
+      const bool alive = M > kNegInf * 0.5f;
+      float L = 0.f, o = 0.f;
+      for (int r = 0; r < C; ++r) {
+        const float w =
+            alive ? expf(*cluster.map_shared_rank(&part_m[gi], r) - M) : 0.f;
+        L = fmaf(*cluster.map_shared_rank(&part_l[gi], r), w, L);
+        o = fmaf(*cluster.map_shared_rank(&part_acc[gi][dc], r), w, o);
+      }
+      out[((size_t)b * p.Hq + hk * G + g) * D + dc] =
+          Vec<T>::store_cvt(o / fmaxf(L, 1e-30f));
+    }
+  }
+  cluster.sync();                     // rank 0 is done reading the others
+}
+
+// One launch of the instantiation: a plain grid for C = 1, else clusters
+// of C blocks along x.
+template <typename T, int D, int GC, typename Rows>
+int launch_gc(const Params& p, dim3 grid, cudaStream_t stream) {
+  const int threads = kWarps * 32;
+  if (p.cluster == 1) {
+    decode_fwd<T, D, GC, Rows><<<grid, threads, 0, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, decode_fwd<T, D, GC, Rows>, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D, typename Rows>
 int launch(const Params& p, cudaStream_t stream) {
   const int G = p.Hq / p.Hkv;
-  int GC = 1;  // query heads per block: the next power of two >= G, <= 8
-  while (GC < G && GC < 8) GC *= 2;
-  const dim3 grid(p.Hkv * ((G + GC - 1) / GC), p.B);
-  const int threads = kWarps * 32;
-  switch (GC) {
-    case 1: decode_fwd<T, D, 1, Rows><<<grid, threads, 0, stream>>>(p); break;
-    case 2: decode_fwd<T, D, 2, Rows><<<grid, threads, 0, stream>>>(p); break;
-    case 4: decode_fwd<T, D, 4, Rows><<<grid, threads, 0, stream>>>(p); break;
-    default: decode_fwd<T, D, 8, Rows><<<grid, threads, 0, stream>>>(p); break;
+  // query heads per block: the smallest instantiated chunk (1, 2, 4, 5 or
+  // 8) that holds min(G, 8); 5 is hymba-1.5b's G, where a chunk of 8
+  // would hold three padding heads' state in registers
+  const int G8 = G < 8 ? G : 8;
+  const int GC = G8 == 3 ? 4 : (G8 > 5 ? 8 : G8);
+  if (p.cluster < 1 || p.cluster > 8 || (p.cluster & (p.cluster - 1)) ||
+      p.span < 1 || (long long)p.cluster * p.span < p.T) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const dim3 grid(p.Hkv * ((G + GC - 1) / GC) * p.cluster, p.B);
+  switch (GC) {
+    case 1: return launch_gc<T, D, 1, Rows>(p, grid, stream);
+    case 2: return launch_gc<T, D, 2, Rows>(p, grid, stream);
+    case 4: return launch_gc<T, D, 4, Rows>(p, grid, stream);
+    case 5: return launch_gc<T, D, 5, Rows>(p, grid, stream);
+    default: return launch_gc<T, D, 8, Rows>(p, grid, stream);
+  }
 }
 
 template <typename T, typename Rows>
@@ -289,15 +435,17 @@ int launch_dtype(const Params& p, int D, int dtype, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Each entry point returns
-// cudaGetLastError() after the launch (0 on success); the caller raises on
-// anything else.
+// dtype: 0 = float32, 1 = bfloat16.  cluster: blocks a unit's slots are
+// split over (1, 2, 4 or 8), span: slots per block (cluster * span >= T).
+// Each entry point returns cudaGetLastError() after the launch (0 on
+// success); the caller raises on anything else.
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* q_pos,
                                       const void* kv_pos, void* out, int B,
                                       int T, int Hq, int Hkv, int D,
                                       int dtype, int window, float softcap,
-                                      float scale, void* stream) {
+                                      float scale, int cluster, int span,
+                                      void* stream) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -312,6 +460,8 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   p.window = window;
   p.softcap = softcap;
   p.scale = scale;
+  p.cluster = cluster;
+  p.span = span;
   return launch_dtype<DenseRows>(p, D, dtype,
                                  static_cast<cudaStream_t>(stream));
 }
@@ -320,7 +470,8 @@ extern "C" int repro_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* page_tables, const void* q_pos, const void* kv_pos_pages,
     void* out, int B, int ppr, int page, int Hq, int Hkv, int D, int dtype,
-    int window, float softcap, float scale, void* stream) {
+    int window, float softcap, float scale, int cluster, int span,
+    void* stream) {
   Params p = {};
   p.q = q;
   p.k = k_pages;
@@ -338,6 +489,8 @@ extern "C" int repro_paged_decode_attention(
   p.window = window;
   p.softcap = softcap;
   p.scale = scale;
+  p.cluster = cluster;
+  p.span = span;
   return launch_dtype<PagedRows>(p, D, dtype,
                                  static_cast<cudaStream_t>(stream));
 }

@@ -2,6 +2,8 @@
 prefill on a CUDA card.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:84``.
+bfloat16 runs on the tensor cores (wgmma, with TMA copies that need
+16-byte aligned q/k/v); float32 keeps a CUDA-core body.
 The plain version of the same function is
 :func:`repro_torch.kernels.ref.flash_attention`; callers go through
 :func:`repro_torch.kernels.ops.flash_attention`, which picks this kernel
@@ -51,6 +53,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"q_pos{tuple(q_pos.shape)} "
                          f"kv_pos{tuple(kv_pos.shape)}")
+    if q.dtype == torch.bfloat16:
+        _checks.aligned16(what, q, k, v)
     win, cap = _checks.mask_args(what, window, softcap)
     out = torch.empty_like(q)
     if out.numel() == 0:

@@ -231,6 +231,124 @@ def test_paged_plain_equals_dense_plain_on_gathered_view(dtype):
     assert torch.equal(got, want)
 
 
+# ------------------------------------------- K2/K3 split over a cluster
+
+from repro_torch.kernels import decode_attention as t_dec   # noqa: E402
+
+
+@pytest.mark.parametrize("name,B,Hq,Hkv,T,want", [
+    ("stablelm cloud", 16, 32, 32, 1024, 1),
+    ("stablelm edge", 2, 32, 32, 1024, 8),
+    ("hymba cloud, rolling", 16, 25, 5, 1024, 4),
+    ("hymba cloud, global", 16, 25, 5, 2048, 4),
+    ("hymba edge, rolling", 2, 25, 5, 1024, 8),
+    ("hymba edge, global", 2, 25, 5, 2048, 8),
+    ("smoke model", 4, 4, 2, 48, 1),
+])
+def test_decode_split_at_main_path_shapes(name, B, Hq, Hkv, T, want):
+    """The cluster size the launcher picks on the main path's decode
+    steps (stablelm-1.6b and hymba-1.5b, cloud B = 16 and edge B = 2)."""
+    C, span = t_dec.split(B, Hkv, t_dec.head_chunks(Hq, Hkv), T)
+    assert C == want, name
+    assert C * span >= T and (C == 1 or -(-T // C) >= t_dec.MIN_SPAN)
+
+
+def test_decode_split_bounds():
+    """Over many shapes: C is a power of two <= 8, the C ranges cover T,
+    every block but the last keeps >= 128 slots, boundaries fall on
+    multiples of 64 slots (hence of pages of 8, 16, 32 and 64 slots), and
+    C is the smallest that reaches the block target."""
+    rng = np.random.default_rng(0)
+    for _ in range(2000):
+        B, Hkv, chunks = (int(x) for x in rng.integers(1, 40, 3))
+        T = int(rng.integers(0, 4097))
+        C, span = t_dec.split(B, Hkv, chunks, T)
+        assert C in (1, 2, 4, 8)
+        assert C * span >= T and span >= 1
+        assert span % t_dec.SPAN_UNIT == 0
+        assert all(span % page == 0 for page in (8, 16, 32, 64))
+        if C > 1:
+            assert -(-T // C) >= t_dec.MIN_SPAN
+            assert B * Hkv * chunks * (C // 2) < t_dec.TARGET_BLOCKS
+        if C < t_dec.MAX_CLUSTER and T >= 2 * C * t_dec.MIN_SPAN:
+            assert B * Hkv * chunks * C >= t_dec.TARGET_BLOCKS
+    assert t_dec.head_chunks(32, 32) == 1 and t_dec.head_chunks(25, 5) == 1
+    assert t_dec.head_chunks(32, 2) == 2 and t_dec.head_chunks(12, 4) == 1
+
+
+def _split_merge_decode(q, k, v, q_pos, kv_pos, C, span, window=None,
+                        softcap=None):
+    """Decode as the split kernel computes it, in plain float32 torch: each
+    of C slot ranges [r*span, (r+1)*span) keeps its own (m, l, acc), an
+    empty range (m, l, acc) = (-1e30, 0, 0); the partials are merged in
+    rank order with the alive / max(l, 1e-30) guards."""
+    B, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    neg = t_ref.NEG_INF
+    qf = q.float().reshape(B, Hkv, G, D) * D ** -0.5
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    d = q_pos[:, None] - kv_pos
+    ok = (kv_pos >= 0) & (d >= 0)
+    if window is not None:
+        ok &= d < window
+    s = torch.where(ok[:, None, None], s, torch.full_like(s, neg))
+    parts = []
+    for r in range(C):
+        lo, hi = min(r * span, T), min((r + 1) * span, T)
+        sr, okr = s[..., lo:hi], ok[:, None, None, lo:hi]
+        m = sr.amax(-1, keepdim=True) if hi > lo else torch.full(
+            s.shape[:-1] + (1,), neg)
+        alive = m > neg / 2
+        p = torch.where(okr & alive, torch.exp(sr - m), torch.zeros_like(sr))
+        acc = torch.einsum("bkgt,btkd->bkgd", p, v[:, lo:hi].float())
+        parts.append((m, p.sum(-1, keepdim=True), acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    alive = M > neg / 2
+    L = torch.zeros_like(M)
+    o = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.where(alive, torch.exp(m - M), torch.zeros_like(m))
+        L = L + l * w
+        o = o + acc * w
+    out = o / torch.clamp(L, min=1e-30)
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (40, None),
+                                            (None, 20.0)])
+@pytest.mark.parametrize("C,span", [(1, 256), (2, 128), (4, 64), (8, 64)])
+def test_split_merge_decode_matches_references(jax_ref, C, span, window,
+                                               softcap):
+    """The split kernel's algorithm (partials per slot range, merged in
+    rank order) against the port's plain decode and the JAX reference's
+    oracle and kernel, with empty ranges (C = 8 over 200 slots leaves four
+    empty, and short rows leave more) and an all-empty row (row 0)."""
+    jr, jnp = jax_ref, jax_ref.jnp
+    rng = np.random.default_rng(C * 1000 + span)
+    B, T, Hq, Hkv, D = 6, 200, 6, 2, 16
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    qp, kp = _rolling_cache(rng, B, T)
+    kp[2, 60:] = -1                          # slots past 60 empty in row 2
+    qp[2] = max(int(kp[2].max()), 0)
+    tq, tk, tv, tqp, tkp = (torch.from_numpy(x) for x in (q, k, v, qp, kp))
+    got = _split_merge_decode(tq, tk, tv, tqp, tkp, C, span, window,
+                              softcap)
+    assert torch.count_nonzero(got[0]) == 0           # the all-empty row
+    want = t_ref.decode_attention(tq, tk, tv, tqp, tkp, window=window,
+                                  softcap=softcap)
+    torch.testing.assert_close(got, want, **_tol("float32"))
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(qp),
+            jnp.asarray(kp))
+    _close(got, jr.ref.decode_attention(*args, window=window,
+                                        softcap=softcap), "float32")
+    _close(got, jr.ops.decode_attention(*args, window, softcap), "float32")
+
+
 def test_cpu_tensors_take_the_plain_versions():
     rng = np.random.default_rng(2)
     q = torch.from_numpy(rng.standard_normal((1, 4, 2, 16)).astype(np.float32))
@@ -634,3 +752,87 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, D, strong_decay,
     with pytest.raises(ValueError, match="head_dim"):
         k4.rwkv6_scan(r, k, v, lw, torch.zeros((2, 24), device=cuda),
                       torch.zeros((1, 2, 24, 24), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", [
+    "ragged", "short", "noncausal", "window-edge", "shuffled", "masked-rows"])
+def test_flash_attention_tensor_core_cases(cuda, case, D):
+    """K1's bfloat16 path (wgmma + TMA) against its plain version at every
+    head dim: S and T off the 64-row tile, fewer rows than a tile, a
+    window edge inside a fragment, kv positions out of slot order, and
+    fully masked rows (exactly zero)."""
+    B, S, T, Hq, Hkv, causal, window = 2, 77, 77, 4, 2, True, None
+    if case == "short":
+        S = T = 5
+    elif case == "noncausal":
+        S, T, causal = 100, 130, False
+    elif case == "window-edge":
+        S = T = 200
+        window = 37                   # ends mid-way through an 8-col block
+    elif case == "shuffled":
+        S = T = 150
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v = (torch.randn(sh, generator=gen, device=cuda).to(torch.bfloat16)
+               for sh in ((B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)))
+    kp = torch.arange(T, dtype=torch.int32)[None].repeat(B, 1)
+    qp = kp[:, T - S:].clone()
+    if case == "shuffled":            # slots hold positions in any order
+        cpu = torch.Generator().manual_seed(D)
+        for b in range(B):
+            kp[b] = kp[b, torch.randperm(T, generator=cpu)]
+        kp[1, ::7] = -1
+    if case == "masked-rows":
+        kp[:, :40] = -1               # queries 0..39 see no valid key
+    qp, kp = qp.to(cuda), kp.to(cuda)
+    t_ops.reset_launches()
+    got = t_ops.flash_attention(q, k, v, qp, kp, causal=causal,
+                                window=window)
+    torch.cuda.synchronize()
+    assert t_ops.launches["flash_attention"] == 1
+    want = t_ref.flash_attention(q, k, v, qp, kp, causal=causal,
+                                 window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol("bfloat16"))
+    if case == "masked-rows":
+        assert torch.count_nonzero(got[:, :40]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,T,C", [
+    (16, 32, 32, 1024, 1),        # stablelm's cloud step
+    (16, 10, 10, 512, 2),
+    (16, 25, 5, 1024, 4),         # hymba's cloud step
+    (2, 25, 5, 1024, 8),          # hymba's edge step
+])
+def test_decode_split_over_cluster_matches_plain(cuda, B, Hq, Hkv, T, C,
+                                                 dtype):
+    """K2 and K3 at shapes the launcher splits over clusters of 1, 2, 4 and
+    8 blocks: each against its plain version (row 0 is empty and must come
+    out zero), and K3 bitwise equal to K2 on the gathered view."""
+    D, page = 64, 16
+    assert t_dec.split(B, Hkv, t_dec.head_chunks(Hq, Hkv), T)[0] == C
+    td = DTYPES[dtype]
+    rng = np.random.default_rng(B + Hq + T)
+    k, v, tables, qp, kpp = (torch.from_numpy(x).to(cuda) for x in
+                             _paged_pool(rng, B, T // page, page, Hkv, D))
+    k, v = k.to(td), v.to(td)
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D)).astype(
+        np.float32)).to(cuda).to(td)
+    idx = tables.long()
+    kd, vd = (x[idx].reshape(B, T, Hkv, D).contiguous() for x in (k, v))
+    kpd = kpp[idx].reshape(B, T).contiguous()
+    t_ops.reset_launches()
+    dense = t_ops.decode_attention(q, kd, vd, qp, kpd)
+    paged = t_ops.paged_decode_attention(q, k, v, tables, qp, kpp)
+    torch.cuda.synchronize()
+    assert t_ops.launches["decode_attention"] == 1
+    assert t_ops.launches["paged_decode_attention"] == 1
+    assert t_dec.last_split["decode_attention"][0] == C
+    assert t_dec.last_split["paged_decode_attention"][0] == C
+    want = t_ref.decode_attention(q, kd, vd, qp, kpd)
+    torch.testing.assert_close(dense.float(), want.float(), **_tol(dtype))
+    assert torch.count_nonzero(dense[0]) == 0
+    assert torch.equal(paged, dense)
