@@ -26,7 +26,9 @@ Phases, each raising on failure (the script then exits non-zero):
    at rwkv6-7b's width (H=64, D=64; S = 1, 128, 512, B=4 S=256, a ragged
    3x77x5x64 and a strong-decay case) and at the reference's sweep shapes,
    in float32 (5e-4 abs / 5e-3 rel) and on bfloat16-rounded inputs
-   (5e-2), and scan(512) against scan(256) then scan(256);
+   (5e-2); at B=1 and every prompt length of the rwkv6 main path (64,
+   100, 128, 256, 384, 512, 1024), under normal and the strongest decay;
+   and scan(512) against scan(256) then scan(256);
 4. the stablelm smoke model served on the card against the same model on
    the CPU through the plain versions (greedy ids must match, and the
    card's run must launch exactly the family's kernels);
@@ -67,7 +69,8 @@ Phases, each raising on failure (the script then exits non-zero):
    with 32 tokens, K4 launched once a layer a prefill call and no other
    kernel or plain version did, and a row's bytes (34,078,720: the WKV
    state and two token shifts of 32 layers) do not grow with its
-   position; then the same prefill and decode-step times;
+   position; then the same prefill and decode-step times.  Both
+   prefill breakdowns also print the scan kernel's own share (K5, K4);
 6. timing of each kernel at the server's shapes (median over CUDA events,
    L2 flushed between launches) beside its bound, its plain version and a
    yardstick of PyTorch library calls (the port never calls them), printed
@@ -78,7 +81,10 @@ Phases, each raising on failure (the script then exits non-zero):
    host enqueues) and the host's time to enqueue the kernel
    (``host_ms``); K2 and K3 rows carry the cluster size their launcher
    ran with.  K1, K2 and K5 are also timed at hymba's
-   shapes, K4 at one 512-token prompt, and K1 at the smaller prefill
+   shapes, K4 at every (B, S) phase 5e launched it at (each row with its
+   launches there; a line sums launches x device time over phase 5e, and
+   the shapes and launches are left in ``build/rwkv6_main_path_k4.json``),
+   and K1 at the smaller prefill
    buckets phase 5 launched and K2 at the edge's B = 2, on lines of their
    own.
 
@@ -88,14 +94,20 @@ non-zero.
 
     python3 chip_smoke.py --baseline DIR
 
-instead builds ``DIR/flash_attention.cu`` and ``DIR/decode_attention.cu``
-(an earlier revision's K1 and K2/K3, say from ``git show``) beside this
-checkout's and times both in one process at the main path's shapes, in
-the order baseline, new, new, baseline (events, device alone and host
-time, as in phase 6; the host time of both through direct ctypes calls,
-and the port's launcher's besides), after checking both against the
-plain versions (float32 K1 and the unsplit K2/K3 must also be bitwise
-equal to the baseline's); it prints ``[ab]`` lines and no result line.
+instead builds the kernel sources ``DIR`` holds (an earlier revision's,
+say from ``git show``): ``flash_attention.cu`` and ``decode_attention.cu``
+(K1 and K2/K3), ``rwkv6_scan.cu`` (K4), beside this checkout's, and
+times both in one process at the main path's shapes, in the order
+baseline, new, new, baseline (events, device alone and host time, as in
+phase 6; the host time of both through direct ctypes calls, and the
+port's launcher's besides), after checking both against the plain
+versions (float32 K1 and the unsplit K2/K3 must also be bitwise equal to
+the baseline's; for K4 whether y and s_final are is printed).  K4 is
+timed at every main-path prompt length and at the shapes the last phase
+6 in this checkout recorded (the file's path and time are printed),
+whose launches weigh a sum of device time for both; with
+``nvidia-smi``'s SM clock and power draw sampled beside each shape.  It
+prints ``[ab]`` lines and no result line.
 """
 
 from __future__ import annotations
@@ -111,6 +123,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+# phase 6 leaves the (B, S, H, D) -> launches of K4 on the rwkv6 main path
+# here, for ``--baseline`` to weigh both revisions' times by (git-ignored)
+MAIN_PATH_K4 = ROOT / "build" / "rwkv6_main_path_k4.json"
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 PEAK_FP32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
@@ -563,6 +578,18 @@ def parity_rwkv() -> None:
             inputs = "float32" if dname == "float32" else "bf16-rounded"
             log(f"[parity] K4 rwkv6_scan {label:12s} {inputs:12s} B={B} "
                 f"S={S} H={H} D={D} max_abs_err={err:.3e} ok")
+    # every prompt length the rwkv6 main path serves, under normal and the
+    # strongest decay
+    for S in SCAN_PROMPTS + (LONG_PROMPT,):
+        for strong in (False, True):
+            xs = rwkv_inputs(1, S, 64, 64, gen, strong_decay=strong)
+            got = ops.rwkv6_scan(*xs)
+            torch.cuda.synchronize()
+            label = f"main-path S={S}" + (" strong" if strong else "")
+            err = _rwkv_close(label, got, ref.rwkv6_scan(*xs), "float32")
+            log(f"[parity] K4 rwkv6_scan main-path    float32      B=1 "
+                f"S={S} H=64 D=64{' strong-decay' if strong else ''} "
+                f"max_abs_err={err:.3e} ok")
     # the state carries: one 512-token scan against two of 256
     r, k, v, lw, u, s0 = rwkv_inputs(1, 512, 64, 64, gen)
     y_all, s_all = ops.rwkv6_scan(r, k, v, lw, u, s0)
@@ -1096,6 +1123,16 @@ def serve_recurrent(tag: str, cfg, params, shapes: dict, card: str,
             f"{100 * dev / wall:.1f}% ({card})")
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"[{tag}]   {ms:8.4f} ms a call  {name[:90]}")
+        if what.startswith("prefill"):
+            # the scan kernel's own share, in the top eight or not
+            own = sum(ms for name, ms in by_name.items()
+                      if f"{scan}_kernel" in name)
+            if own <= 0:
+                raise RuntimeError(f"{tag}: the profiler saw no {scan} "
+                                   f"kernel in the prefill")
+            log(f"[{tag}]   {KERNEL_TAGS[scan]} {scan} alone: {own:.4f} ms "
+                f"a call, {100 * own / dev:.1f}% of the prefill's device "
+                f"time")
     return launches
 
 
@@ -1321,9 +1358,10 @@ def _k5_row(key, launches, gen, flush) -> dict:
         "shape": f"B={B} S={S} I={I} N={N} float32"}
 
 
-def _k4_row(key, launches, gen, flush) -> dict:
+def _k4_row(key, launches, gen, flush, shape_launches=None) -> dict:
     """K4 timed at one (r,) shape of a prefill, beside its bound and its
-    plain version; no single PyTorch call computes the recurrence."""
+    plain version; no single PyTorch call computes the recurrence.  The
+    row carries, given, the launches the main path made at this shape."""
     import torch
     from repro_torch.kernels import ops, ref
     ((B, S, H, D),) = key
@@ -1349,6 +1387,8 @@ def _k4_row(key, launches, gen, flush) -> dict:
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None, **_split_times(kern, flush),
         "library": "none: no PyTorch call computes the WKV6 recurrence",
+        **({} if shape_launches is None else
+           {"shape_launches": shape_launches}),
         "shape": f"B={B} S={S} H={H} D={D} float32"}
 
 
@@ -1464,8 +1504,20 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
     # and K5 at one 512-token prompt, whatever the path launched most
     (_, _, I, N), _ = k5_key
     hy_rows.append(_k5_row(((1, 512, I, N), None), hy_launches, gen, flush))
-    ((_, _, H, D),) = k4_key
-    rw_rows = [_k4_row(((1, 512, H, D),), rw_launches, gen, flush)]
+    # K4 at every shape the rwkv6 main path launched it at, each with its
+    # launches there; their sum weighted by device time is K4's share of
+    # phase 5e
+    rw_rows = [_k4_row(key, rw_launches, gen, flush, n)
+               for key, n in sorted(rw_shapes["K4"].items(),
+                                    key=lambda kv: kv[0][0][:2])]
+    dev = sum(r["shape_launches"] * r["device_ms"] for r in rw_rows)
+    bound = sum(r["shape_launches"] * r["bound_ms"] for r in rw_rows)
+    log(f"[time-rwkv6] K4 over phase 5e: {sum(rw_shapes['K4'].values())} "
+        f"launches at {len(rw_rows)} shapes, sum of launches x device time "
+        f"{dev:.3f} ms (bound {bound:.3f} ms)")
+    MAIN_PATH_K4.parent.mkdir(parents=True, exist_ok=True)
+    MAIN_PATH_K4.write_text(json.dumps(
+        [[list(k[0]), n] for k, n in sorted(rw_shapes["K4"].items())]))
     # K1 at every smaller prefill bucket phase 5 launched, and K2 at the
     # edge tier's B = 2 (stablelm, and hymba's rolling cache)
     more = [_k1_row(max((s for s in shapes["K1"] if s[0][1] == S),
@@ -1484,6 +1536,8 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
             cl = f", cluster {r['cluster']}" if "cluster" in r else ""
+            if "shape_launches" in r:
+                cl += f", launches at this shape {r['shape_launches']}"
             log(f"[{tag}] {r['name']} {r['shape']}: kernel {r['ms']:.4f} "
                 f"ms (device alone {r['device_ms']:.4f} ms, host "
                 f"{r['host_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
@@ -1496,6 +1550,159 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
 
 
 def baseline_ab(base: Path) -> list:
+    """Phase-6-style timing of this checkout's kernels against an earlier
+    revision's sources in ``base``, in this one process on this one card:
+    K1, K2 and K3 when ``base`` holds ``flash_attention.cu`` and
+    ``decode_attention.cu``, K4 when it holds ``rwkv6_scan.cu``."""
+    rows = []
+    if all((base / f"{n}.cu").is_file()
+           for n in ("flash_attention", "decode_attention")):
+        rows += _ab_attention(base)
+    if (base / "rwkv6_scan.cu").is_file():
+        rows += _ab_rwkv(base)
+    if not rows:
+        raise RuntimeError(f"{base}: no kernel source to compare against")
+    return rows
+
+
+class _Clocks:
+    """``nvidia-smi --query-gpu=clocks.sm,power.draw,power.limit`` sampled
+    every 50 ms while the block runs; ``summary`` gives each as [min,
+    median, max] over the samples (MHz, W, W) and their count."""
+
+    KEYS = ("clocks.sm", "power.draw", "power.limit")
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={','.join(self.KEYS)}",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        samples = []
+        for line in out.splitlines():
+            try:
+                samples.append([float(x) for x in line.split(",")])
+            except ValueError:
+                continue                   # a line cut short, or [N/A]
+        self.summary = {"samples": len(samples)}
+        for key, col in zip(self.KEYS, zip(*samples)):
+            self.summary[key] = [min(col), statistics.median(col), max(col)]
+        return False
+
+
+def _ab_rwkv(base: Path) -> list:
+    """K4 of this checkout against ``base/rwkv6_scan.cu``, at B = 1 and
+    every prompt length of the rwkv6 main path (rwkv6-7b: H = D = 64) and
+    at every (B, S) phase 6 last recorded for it (``MAIN_PATH_K4``).
+    Both are checked against the plain version (and whether they are
+    bitwise equal is printed), then timed baseline, new, new, baseline
+    three ways, as for K1/K2, with the card's SM clock and power sampled
+    beside.  The new kernel goes through the port's launcher, the
+    baseline straight through ctypes (the entry points take the same
+    arguments); both libraries' host side is timed through the same
+    ctypes path."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import rwkv6_scan as k4
+    P, I = ctypes.c_void_p, ctypes.c_int
+
+    def direct(csrc: Path) -> tuple:
+        lib = ctypes.CDLL(str(_build.build(["rwkv6_scan"],
+                                           csrc=csrc)["rwkv6_scan"]))
+        lib.repro_cuda_error_string.argtypes = [I]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        fn = lib.repro_rwkv6_scan
+        fn.argtypes = [P] * 8 + [I] * 4 + [P]
+        fn.restype = I
+
+        def call(xs):
+            y, sf = torch.empty_like(xs[0]), torch.empty_like(xs[5])
+            err = fn(*(t.data_ptr() for t in xs), y.data_ptr(),
+                     sf.data_ptr(), *xs[0].shape,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(
+                    f"{csrc}: K4 failed: "
+                    f"{lib.repro_cuda_error_string(err).decode()}")
+            return y, sf
+        return call
+
+    new_direct, old_direct = direct(_build.CSRC), direct(base)
+
+    shapes = {(1, S, 64, 64) for S in SCAN_PROMPTS + (LONG_PROMPT,)}
+    main = {}
+    if MAIN_PATH_K4.is_file():
+        main = {tuple(k): n for k, n in json.loads(MAIN_PATH_K4.read_text())}
+        shapes |= set(main)
+        written = time.strftime("%Y-%m-%d %H:%M:%S", time.localtime(
+            MAIN_PATH_K4.stat().st_mtime))
+        log(f"[ab] K4 main-path shapes and launches from {MAIN_PATH_K4} "
+            f"(written {written} by an earlier phase 6 in this checkout)")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for shape in sorted(shapes):
+        label = f"K4 B={shape[0]} S={shape[1]}"
+        xs = rwkv_inputs(*shape, gen)
+
+        def new_fn():
+            return k4.rwkv6_scan(*xs)
+
+        def old_fn_():
+            return old_direct(xs)
+
+        def direct_fn():
+            return new_direct(xs)
+
+        got_new = new_fn()
+        got_old, got_direct = old_fn_(), direct_fn()
+        torch.cuda.synchronize()
+        want = ref.rwkv6_scan(*xs)
+        err_new = _rwkv_close(f"{label} (new)", got_new, want, "float32")
+        err_old = _rwkv_close(f"{label} (baseline)", got_old, want,
+                              "float32")
+        if not all(torch.equal(a, b) for a, b in zip(got_new, got_direct)):
+            raise RuntimeError(f"{label}: the launcher and a direct call "
+                               f"disagree")
+        same = [torch.equal(a, b) for a, b in zip(got_new, got_old)]
+        row = {"label": label, "shape": list(shape),
+               "max_abs_err": err_new, "baseline_max_abs_err": err_old,
+               "bitwise_equal_y": same[0], "bitwise_equal_s_final": same[1]}
+        log(f"[ab] {label}: max_abs_err new {err_new:.3e} baseline {err_old:.3e}, bitwise equal to "
+            f"the baseline: y {same[0]}, s_final {same[1]}")
+        with _Clocks() as clocks:
+            for key, timer, new in (
+                    ("ms", lambda f: _time_ms(f, flush), new_fn),
+                    ("device_ms", lambda f: _time_ms(f, flush, isolate=True),
+                     new_fn),
+                    ("host_ms", _host_ms, direct_fn)):
+                t = [timer(fn) for fn in (old_fn_, new, new, old_fn_)]
+                row[f"baseline_{key}"], row[f"new_{key}"] = ([t[0], t[3]],
+                                                             t[1:3])
+                log(f"[ab] {label} {key}: baseline {t[0]:.5f} / "
+                    f"{t[3]:.5f}, new {t[1]:.5f} / {t[2]:.5f}, ratio "
+                    f"{(t[0] + t[3]) / (t[1] + t[2]):.2f}x")
+        row["clocks"] = clocks.summary
+        log(f"[ab] {label} nvidia-smi [min, median, max]: {clocks.summary}")
+        rows.append(row)
+    if main:
+        by_shape = {tuple(r["shape"]): r for r in rows}
+        tot = {side: sum(n * statistics.mean(by_shape[sh][f"{side}_device_ms"])
+                         for sh, n in main.items())
+               for side in ("baseline", "new")}
+        log(f"[ab] K4 over the phase 5e of {written} "
+            f"({sum(main.values())} launches at {len(main)} shapes): sum of "
+            f"launches x device time, baseline {tot['baseline']:.3f} ms, new "
+            f"{tot['new']:.3f} ms")
+    return rows
+
+
+def _ab_attention(base: Path) -> list:
     """K1, K2 and K3 of this checkout against the same kernels built from
     ``base/flash_attention.cu`` and ``base/decode_attention.cu`` (an
     earlier revision's sources), in this one process on this one card.
@@ -1730,7 +1937,7 @@ def main() -> int:
                                           hy_launches, hcfg.sliding_window,
                                           rw_shapes, rw_launches)
     log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")
-    log(f"[time-rwkv6] {json.dumps({'kernels_at_rwkv6_512': rw_rows})}")
+    log(f"[time-rwkv6] {json.dumps({'k4_rwkv6': rw_rows})}")
     log(f"[time-more] {json.dumps({'buckets_and_edge': more})}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)

@@ -508,6 +508,86 @@ def test_rwkv6_scan_launcher_refuses_what_the_kernel_does_not_take():
         t_ops.rwkv6_scan(*(x.to("meta") for x in xs))
 
 
+# --------------------------------------- K4's order of rounding, modelled
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to float32 (through float64, where the
+    product of two float32 values is exact), as the kernel's fmaf."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _k4_order_scan(r, k, v, lw, u, s0):
+    """The WKV6 scan in the order in which K4 (``csrc/rwkv6_scan.cu``)
+    rounds, in numpy float32.  Rows i = (n4 * kTpc + q) * 4 + e of a head
+    fall to row group q (kTpc = D / 8 groups); per token, each group sums
+    its bonus partial sum_i (r_i u_i) k_i and then, per column j, a
+    partial v_j * bonus_q + sum_i r_i S[i, j], both over its rows in
+    ascending order with fused multiply-adds; the kTpc partials are
+    summed as a tree, halves first (the lane reduction); the state update
+    is S[i, j] <- fma(e^{lw_i}, S[i, j], k_i v_j)."""
+    B, S, H, D = r.shape
+    tpc = D // 8
+
+    def groups(x):              # (..., D) -> (..., n4, q, e) -> (..., q, n4*e)
+        x = x.reshape(*x.shape[:-1], 2, tpc, 4)
+        return np.moveaxis(x, -2, -3).reshape(*x.shape[:-3], tpc, 8)
+
+    st = s0.copy()
+    ys = np.empty_like(r)
+    ru = (r * u).astype(np.float32)
+    for t in range(S):
+        rt, kt, vt = r[:, t], k[:, t], v[:, t]               # (B, H, D)
+        w = np.exp(lw[:, t])
+        g_ru, g_k, g_r = groups(ru[:, t]), groups(kt), groups(rt)
+        bonus = np.zeros((B, H, tpc), np.float32)
+        for m in range(8):
+            bonus = _fma(g_ru[..., m], g_k[..., m], bonus)
+        g_st = groups(np.swapaxes(st, -1, -2))            # (B, H, j, q, m)
+        acc = (vt[..., :, None] * bonus[..., None, :]).astype(np.float32)
+        for m in range(8):
+            acc = _fma(g_r[..., None, :, m], g_st[..., m], acc)
+        while acc.shape[-1] > 1:
+            half = acc.shape[-1] // 2
+            acc = acc[..., :half] + acc[..., half:]
+        ys[:, t] = acc[..., 0]
+        kv = (kt[..., :, None] * vt[..., None, :]).astype(np.float32)
+        st = _fma(w[..., :, None], st, kv)
+    return ys, st
+
+
+@pytest.mark.parametrize("B,S,H,D,strong_decay", [
+    # rwkv6-7b's head dim at every prompt length of the rwkv6 main path
+    (1, 64, 2, 64, False), (1, 100, 2, 64, False), (1, 128, 2, 64, False),
+    (1, 256, 2, 64, False), (1, 384, 2, 64, False), (1, 512, 2, 64, False),
+    (1, 1024, 2, 64, False), (2, 384, 2, 64, False),
+    (3, 77, 5, 64, False),                     # chip_smoke's ragged case
+    # lw = -e^10: the state dies every step
+    (1, 64, 2, 64, True), (1, 100, 2, 64, True), (1, 512, 2, 64, True),
+    # the other head dims: 1, 2 and 4 row groups
+    (1, 77, 2, 8, False), (1, 77, 2, 16, False), (1, 77, 2, 32, False),
+    (1, 64, 2, 8, True), (1, 64, 2, 16, True), (1, 64, 2, 32, True),
+])
+def test_rwkv6_kernel_order_matches_references(jax_ref, B, S, H, D,
+                                               strong_decay):
+    """K4 rounds y in another order than its plain version (the bonus
+    summed per row group, the lane reduction a tree): that order, modelled
+    on the CPU, against the port's plain scan and the JAX reference's
+    oracle within the reference's WKV tolerance."""
+    rng = np.random.default_rng(S * D + B)
+    xs = _rwkv_inputs(rng, B, S, H, D, strong_decay=strong_decay)
+    y, sf = _k4_order_scan(*xs)
+    want_y, want_s = t_ops.rwkv6_scan(*(torch.from_numpy(x) for x in xs))
+    np.testing.assert_allclose(y, want_y.numpy(), **RWKV_TOL["float32"])
+    np.testing.assert_allclose(sf, want_s.numpy(), **RWKV_TOL["float32"])
+    jy, js = jax_ref.ref.rwkv6_scan(*(jax_ref.jnp.asarray(x) for x in xs))
+    np.testing.assert_allclose(y, np.asarray(jy), **RWKV_TOL["float32"])
+    np.testing.assert_allclose(sf, np.asarray(js), **RWKV_TOL["float32"])
+    if strong_decay:
+        # e^{-e^10} is 0 in float32: the state is the last token's k v^T
+        np.testing.assert_array_equal(sf, want_s.numpy())
+
+
 # ---------------------------------------------------------------- K5 ssd_scan
 
 
@@ -718,6 +798,8 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, I, N, strong_decay):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,D,strong_decay", [
     (1, 512, 64, 64, False),      # rwkv6-7b's prefill
+    (1, 100, 64, 64, False),      # main-path lengths: a ragged span
+    (1, 1024, 64, 64, False),
     (4, 256, 64, 64, False),
     (1, 1, 64, 64, False),
     (1, 128, 64, 64, True),
@@ -752,6 +834,24 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, D, strong_decay,
     with pytest.raises(ValueError, match="head_dim"):
         k4.rwkv6_scan(r, k, v, lw, torch.zeros((2, 24), device=cuda),
                       torch.zeros((1, 2, 24, 24), device=cuda))
+
+
+@pytest.mark.gpu
+def test_rwkv6_scan_kernel_state_carry_composes(cuda):
+    """scan(512) against scan(256) then scan(256) from the carried state,
+    on the card."""
+    rng = np.random.default_rng(7)
+    r, k, v, lw, u, s0 = (torch.from_numpy(x).to(cuda) for x in
+                          _rwkv_inputs(rng, 1, 512, 64, 64))
+    y_all, s_all = t_ops.rwkv6_scan(r, k, v, lw, u, s0)
+    halves = [tuple(t[:, sl].contiguous() for t in (r, k, v, lw))
+              for sl in (slice(0, 256), slice(256, 512))]
+    y1, s1 = t_ops.rwkv6_scan(*halves[0], u, s0)
+    y2, s2 = t_ops.rwkv6_scan(*halves[1], u, s1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_all,
+                               **RWKV_TOL["float32"])
+    torch.testing.assert_close(s2, s_all, **RWKV_TOL["float32"])
 
 
 @pytest.mark.gpu
