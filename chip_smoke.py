@@ -71,6 +71,29 @@ Phases, each raising on failure (the script then exits non-zero):
    state and two token shifts of 32 layers) do not grow with its
    position; then the same prefill and decode-step times.  Both
    prefill breakdowns also print the scan kernel's own share (K5, K4);
+5f. (run after 5c, on phase 5's weights, shared by every tier) the
+   three-tier chain: full-width stablelm-1.6b served by
+   ``Continuum.from_topology`` over a device -> edge -> cloud chain with waterfall spill (device 2 dense
+   slots, depth 4; edge 8 slots paged in 128 pages of 16, depth 8; cloud
+   16 dense slots, unbounded; links 5 ms / 50 MB/s and 40 ms / 100 MB/s),
+   policy ``"auto+net"`` with ``req_bytes`` 6.0e6, arrivals from
+   ``Trace.bursty(0.5, 8.0, 30.0, mean_on_s=5, mean_off_s=10, seed=0)``
+   (68 requests, prompts of 64..512 tokens, 32 new tokens) through
+   ``trace=``, ticked to its end and drained.  Fails unless served +
+   rejected == submitted with every served request holding 32 tokens,
+   K1, K2 and K3 launched and nothing else did, and the simulator's
+   control loop over the same chain (``ContinuumSimulator("matmult",
+   "auto+net", ...).control``) replays the recorded controller inputs to
+   the live R_t exactly (``np.array_equal``).  Prints served per tier,
+   rejected, spilled, link MB, R_t per boundary per tick, the ticks the
+   net-aware cap bound on, ``controller_update``'s host time (median and
+   p95), tokens/s and one decode step per tier (wall, device time, busy
+   share);
+5g. the paper's four FaaS bodies (matmult n=256, image_proc 128,
+   random_io 2^16, mixed 128) on the card, each against its CPU run on
+   the same drawn tensors (1e-4 abs / 1e-4 rel), timed with CUDA events;
+   then ``Continuum.sweep("matmult")`` on the host over 0, 25, 50, 75,
+   100, ``"auto"`` and ``"auto+net"``, printing successes / failures;
 6. timing of each kernel at the server's shapes (median over CUDA events,
    L2 flushed between launches) beside its bound, its plain version and a
    yardstick of PyTorch library calls (the port never calls them), printed
@@ -1136,6 +1159,281 @@ def serve_recurrent(tag: str, cfg, params, shapes: dict, card: str,
     return launches
 
 
+CHAIN_PROMPTS = (64, 128, 256, 512)
+CHAIN_REQ_BYTES = 6.0e6             # matmult's payload: the sim's boundaries
+
+
+def _chain_topology(max_len: int):
+    """Phase 5f's chain, ``Topology.device_edge_cloud``'s links and
+    queue depths with the serving tiers of the issue: device 2 dense
+    slots (depth 4), edge 8 slots paged in 128 pages of 16 (the KV of two
+    dense rows; depth 8), cloud 16 dense slots (unbounded)."""
+    from repro_torch.platform import LinkSpec, TierSpec, Topology
+    return Topology(
+        (TierSpec("device", slots=2, max_len=max_len,
+                  queue_depth_per_slot=4),
+         TierSpec("edge", slots=8, max_len=max_len, page_size=16,
+                  pool_pages=128, queue_depth_per_slot=8),
+         TierSpec("cloud", slots=16, max_len=max_len,
+                  queue_depth_per_slot=None)),
+        (LinkSpec(rtt_s=0.005, bandwidth_Bps=50e6),
+         LinkSpec(rtt_s=0.04, bandwidth_Bps=100e6)), waterfall=True)
+
+
+def _chain_trace(vocab: int):
+    """68 requests in two bursts (ticks 8-10 and 26-29), prompts drawn
+    from ``CHAIN_PROMPTS``, 32 new tokens each."""
+    import numpy as np
+    from repro_torch.platform import Trace
+    tr = Trace.bursty(base_rps=0.5, burst_rps=8.0, duration_s=30.0,
+                      mean_on_s=5.0, mean_off_s=10.0, seed=0)
+    tr.prompt_len[:] = np.random.default_rng(0).choice(CHAIN_PROMPTS,
+                                                       len(tr))
+    tr.max_new[:] = 32
+    return tr
+
+
+def _net_caps(control, arrivals) -> list:
+    """Each boundary's net-aware cap for this tick's demand, computed as
+    the controller does (float32)."""
+    import numpy as np
+    from repro_torch.core.offload import link_x100
+    caps = []
+    for pol, a in zip(control.policies, arrivals):
+        rps = control._rps(a)
+        denom = np.maximum(rps * np.float32(pol.cfg.req_bytes),
+                           np.float32(1e-9))
+        caps.append(np.clip(np.float32(link_x100(pol.cfg.link_bytes_per_s))
+                            / denom, 0, 100).astype(np.float32))
+    return caps
+
+
+def _step_device(ep, prompts: dict, card: str, tag: str, label: str):
+    """One decode step of ``ep`` with ``prompts`` resident: wall (median
+    of 8) and device time (profiler, mean of 8) and busy share."""
+    toks = ep.prefill_batch(prompts)
+
+    def step():
+        nonlocal toks
+        toks = ep.decode_all(toks)
+
+    for _ in range(3):
+        step()
+    wall = _wall_ms(step, 8)
+    dev, by_name = _device_ms(step, 8)
+    for s in list(prompts):
+        ep.release(s)
+    log(f"[{tag}] {label}: decode step of {len(prompts)} rows {wall:.3f} ms "
+        f"wall (median), device time {dev:.4f} ms (profiler), busy share "
+        f"{100 * dev / wall:.1f}% ({card})")
+    return wall, dev
+
+
+def serve_chain(cfg, params, shapes: dict, card: str) -> dict:
+    """Phase 5f: full-width stablelm-1.6b through a live three-tier
+    device -> edge -> cloud chain (waterfall on) under ``"auto+net"``,
+    arrivals from a bursty trace; conservation, the kernels launched on
+    every tier, the net-aware cap, sim R_t == live R_t on the recorded
+    controller inputs, the controller's host time, tokens/s and one
+    decode step per tier."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.core.simulator import ContinuumSimulator, SimConfig
+    from repro_torch.kernels import ops
+    from repro_torch.platform import (AutoscalingPolicy, Continuum,
+                                      FunctionSpec)
+    max_len, max_new = 1024, 32
+    topo = _chain_topology(max_len)
+    trace = _chain_trace(cfg.vocab_size)
+    cc = Continuum.from_topology(topo, policy="auto+net",
+                                 req_bytes=CHAIN_REQ_BYTES, trace=trace,
+                                 trace_vocab=cfg.vocab_size, seed=0,
+                                 device="cuda")
+    cc.deploy(FunctionSpec(name="stablelm", arch="stablelm-1.6b",
+                           autoscaling=AutoscalingPolicy()), cfg, params)
+    per_tick = trace.per_tick(1.0)[:, 0]
+    log(f"[chain] {topo}; trace {len(trace)} requests, arrivals per tick "
+        f"{per_tick.tolist()}; caps parsed per boundary: "
+        f"{[(p.spec, p.cfg.link_bytes_per_s, p.cfg.req_bytes) for p in cc.control.policies]}")
+
+    # record every scrape's controller inputs and outputs, and its host time
+    inputs, outputs, upd_ms = [], [], []
+    step_tiers = cc.control.step_tiers
+
+    def recorded(lats, vals, queue_ages=None, arrivals=None):
+        inputs.append(([np.array(l) for l in lats],
+                       [np.array(v) for v in vals],
+                       copy.deepcopy(queue_ages),
+                       [np.array(a) for a in arrivals]))
+        R = step_tiers(lats, vals, queue_ages=queue_ages, arrivals=arrivals)
+        outputs.append(np.array(R))
+        return R
+    cc.control.step_tiers = recorded
+    update = cc.controller_update
+
+    def timed_update():
+        t0 = time.perf_counter()
+        out = update()
+        upd_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+    cc.controller_update = timed_update
+
+    calls = {"prefill": 0, "decode": 0}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter()
+    with recording(shapes, calls):
+        for tick in range(int(math.ceil(trace.duration_s))):
+            rec = cc.tick()
+            log(f"[chain] tick={tick} arrived={int(per_tick[tick])} "
+                f"served={rec['tiers']} spilled={rec['spilled']} "
+                f"rejected={rec['rejected']} backlog={rec['backlog']} "
+                f"R_t={[f'{r:.2f}' for r in outputs[-1][:, 0]]}")
+        drained = cc.drain()
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t_serve
+    launches = dict(ops.launches)
+
+    reqs = cc.trace_requests
+    served = {t.name: sum(r["tiers"][t.name] for r in cc.log)
+              for t in cc.tiers}
+    rejected = sum(r["rejected"] for r in cc.log)
+    n_served = sum(served.values())
+    if len(reqs) != len(trace) or n_served + rejected != len(reqs):
+        raise RuntimeError(f"chain: served {served} + rejected {rejected} "
+                           f"!= submitted {len(reqs)}")
+    if sum(r.failed for r in reqs) != rejected:
+        raise RuntimeError("chain: failed requests != rejections")
+    for r in reqs:
+        if r.failed:
+            continue
+        if (r.output is None or r.output.shape != (max_new,)
+                or r.output.min() < 0 or r.output.max() >= cfg.vocab_size):
+            raise RuntimeError(f"chain request {r.rid}: bad output "
+                               f"{r.output}")
+    need = ("flash_attention", "decode_attention", "paged_decode_attention")
+    if min(launches[k] for k in need) <= 0:
+        raise RuntimeError(f"chain skipped a kernel: {launches}")
+    if any(n for k, n in launches.items() if k not in need):
+        raise RuntimeError(f"chain ran a plain version or another kernel: "
+                           f"{launches}")
+    link_MB = [sum(r["link_MB"][l] for r in cc.log)
+               for l in range(len(topo.links))]
+    spilled = sum(r["spilled"] for r in cc.log)
+
+    # sim R_t == live R_t: the simulator's loop over the same chain,
+    # parsed against matmult's payload, replays the recorded inputs
+    sim = ContinuumSimulator("matmult", "auto+net",
+                             SimConfig(window=64, control_interval_s=1.0),
+                             topology=topo).control
+    capped = 0
+    for i, ((lats, vals, ages, arrivals), R_live) in enumerate(
+            zip(inputs, outputs)):
+        R_sim = sim.step_tiers(lats, vals, queue_ages=ages,
+                               arrivals=arrivals)
+        if not np.array_equal(R_sim, R_live):
+            raise RuntimeError(f"chain: sim R_t {R_sim.tolist()} != live "
+                               f"R_t {R_live.tolist()} at scrape {i}")
+        caps = _net_caps(cc.control, arrivals)
+        capped += int(any(np.any((R_live[b] == caps[b]) & (caps[b] < 100))
+                          for b in range(len(caps))))
+    traj = np.stack(outputs)[:, :, 0]
+    med = statistics.median(upd_ms)
+    p95 = float(np.percentile(upd_ms, 95))
+    tokens = n_served * max_new
+    log(f"[chain] submitted {len(reqs)} served {served} rejected {rejected} "
+        f"spilled {spilled} link_MB {[round(m, 4) for m in link_MB]} "
+        f"drain_ticks={drained} tokens={tokens} wall={secs:.2f}s "
+        f"tokens_per_s={tokens / secs:.1f} launches={launches}")
+    log(f"[chain] R_t per boundary per scrape: "
+        f"{ {b: [round(float(x), 4) for x in traj[:, b]] for b in range(traj.shape[1])} }")
+    log(f"[chain] sim R_t == live R_t (np.array_equal) on all "
+        f"{len(outputs)} scrapes; the net-aware cap bound on {capped} of "
+        f"them")
+    log(f"[chain] controller_update host time over {len(upd_ms)} ticks: "
+        f"median {med:.4f} ms, p95 {p95:.4f} ms, max {max(upd_ms):.4f} ms")
+    log(f"[chain] {calls['prefill']} prefill calls, {calls['decode']} decode "
+        f"steps; K1 {launches['flash_attention']}, K2 "
+        f"{launches['decode_attention']}, K3 "
+        f"{launches['paged_decode_attention']} launches")
+    for t in ("K1", "K2", "K3"):
+        log(f"[chain] {t} shapes -> launches: "
+            f"{ {str(k): v for k, v in sorted(shapes.get(t, {}).items())} }")
+
+    # one decode step per tier, every slot resident (the edge's rows fit
+    # its pages: 8 x 10 of 128)
+    rng = np.random.default_rng(5)
+    for tier in cc.tiers:
+        ep = tier.endpoints["stablelm"]
+        prompts = {}
+        while ep.active < ep.slots:
+            toks = rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
+            slot = (ep.try_claim(tokens=toks, max_new=max_new) if ep.paged
+                    else ep.try_claim())
+            if slot is None:                # pages held by the registry
+                break
+            prompts[slot] = toks
+        _step_device(ep, prompts, card, "chain", f"tier {tier.name}"
+                     f"{' (paged)' if ep.paged else ''}")
+    return launches
+
+
+def faas_bodies(card: str) -> None:
+    """Phase 5g: the paper's four FaaS bodies on the card, each against
+    its CPU run on the same drawn tensors, timed with CUDA events."""
+    import torch
+    from repro_torch.core import workloads as wl
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    a, b = wl.draw_matmult(256, g, dev)
+    img = wl.draw_image(128, g, dev)
+    idx = wl.draw_io(1 << 16, g, dev)
+    ma, mb = wl.draw_matmult(128, g, dev)
+    mimg = wl.draw_image(128, g, dev)
+    midx = wl.draw_io(128 * 128, g, dev)
+    cases = (("matmult n=256", wl.matmult_body, (a, b)),
+             ("image_proc 128", wl.image_proc_body, (img,)),
+             ("random_io 2^16", wl.random_io_body, (idx, 1 << 16)),
+             ("mixed 128", wl.mixed_body, (ma, mb, mimg, midx)))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    for name, fn, args in cases:
+        got = fn(*args)
+        want = fn(*[x.cpu() if torch.is_tensor(x) else x for x in args])
+        if not torch.isfinite(got) or not torch.allclose(got.cpu(), want,
+                                                         **tol):
+            raise RuntimeError(f"FaaS body {name}: card {got.item()} vs "
+                               f"CPU {want.item()}")
+        for _ in range(3):
+            fn(*args)
+        times = []
+        for _ in range(20):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn(*args)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        log(f"[faas] {name}: card {got.item():.6g} CPU {want.item():.6g} "
+            f"(rtol 1e-4, atol 1e-4), {statistics.median(times):.4f} ms a "
+            f"call (CUDA events, median of 20; {card})")
+
+
+def sim_sweep() -> None:
+    """The paper's Table 2 row for matmult, on the host."""
+    from repro_torch.platform import Continuum
+    t0 = time.perf_counter()
+    res = Continuum.sweep("matmult", (0.0, 25.0, 50.0, 75.0, 100.0, "auto",
+                                      "auto+net"))
+    for pol, r in res.items():
+        if r.successes + r.failures != r.submitted or r.submitted <= 0:
+            raise RuntimeError(f"sweep {pol}: not conserved")
+    log(f"[sweep] matmult successes/failures per policy: "
+        f"{ {p: (r.successes, r.failures) for p, r in res.items()} } "
+        f"({time.perf_counter() - t0:.1f}s on the host)")
+
+
 def serve_hymba(cfg, params, shapes: dict, card: str) -> dict:
     """Phase 5d: the hymba main path; its K2 must read both cache widths
     (the 1024-wide rolling window and the 2048-wide global layers)."""
@@ -1921,6 +2219,9 @@ def main() -> int:
                                                   paged_shapes).items()
                      if k.startswith("paged_")})
     shapes["K3"] = paged_shapes["K3"]
+    chain_launches = serve_chain(cfg, params, {}, card)
+    faas_bodies(card)
+    sim_sweep()
     del params
     torch.cuda.empty_cache()
     hcfg, hparams = full_model("hymba-1.5b")
@@ -1936,6 +2237,10 @@ def main() -> int:
     rows, hy_rows, rw_rows, more = timing(shapes, launches, hy_shapes,
                                           hy_launches, hcfg.sliding_window,
                                           rw_shapes, rw_launches)
+    for row in rows:
+        if row["name"] in ("flash_attention", "decode_attention",
+                           "paged_decode_attention"):
+            row["launches_5f"] = chain_launches[row["name"]]
     log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")
     log(f"[time-rwkv6] {json.dumps({'k4_rwkv6': rw_rows})}")
     log(f"[time-more] {json.dumps({'buckets_and_edge': more})}")

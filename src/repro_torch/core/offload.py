@@ -11,8 +11,15 @@ host tensors (float32, as the reference):
     Eq (4)  R_t(t)  = R_t(t-1)*c_in + r_t(t)*(1-c_in),  R_t(0) = 0
 
 State is carried per function row, with one ring-buffer head per row
-(the reference's ``OffloadState.init_rows`` layout).  The net-aware cap
-and the streaming-sketch Eq-(1) front end are not ported yet.
+(the reference's ``OffloadState.init_rows`` layout), and
+:func:`offload_update` adds the beyond-paper net-aware cap (R_t capped
+by the share of demand the link can carry).  Its rounding follows the
+reference's jitted rows kernel bit for bit: XLA on the CPU contracts
+three multiply-adds into FMAs, folds Eq (3)'s constants and flushes
+subnormals, so the port
+does the same at each site (float64 holds an exact float32 product, so
+``(a*b + c)`` rounded once to float32 is the FMA).  The streaming-sketch
+Eq-(1) front end is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -33,6 +41,11 @@ class OffloadConfig:
     c_soft: float = 1.25      # soft limit of the p95/p50 ratio, Eq (3)
     c_hard: float = 2.5       # hard limit of the p95/p50 ratio, Eq (3)
     c_in: float = 0.6         # inertia factor, Eq (4)
+    # beyond-paper extension: cap the offloaded share by what the link
+    # carries at the demand of each update
+    net_aware: bool = False
+    link_bytes_per_s: float = 100e6   # the paper's observed 100 MB/s ceiling
+    req_bytes: float = 1e6            # average request+response payload
 
     def decay_weights(self) -> torch.Tensor:
         """w_k = c_decay^k / sum_j c_decay^j for k = 0..c_t (newest first)."""
@@ -91,7 +104,26 @@ def _nanpercentile(x: torch.Tensor, q: float) -> torch.Tensor:
                          torch.minimum(high, counts - 1))
     lo_v = xs.gather(-1, low.long()[:, None])[:, 0]
     hi_v = xs.gather(-1, high.long()[:, None])[:, 0]
-    return lo_v * low_w + hi_v * high_w
+    # XLA on the CPU contracts ``lo*lw + hi*hw`` into fma(hi, hw, lo*lw)
+    return _fma(hi_v, high_w, lo_v * low_w)
+
+
+_FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """Flush float32 subnormals to zero, as XLA's CPU code does (R_t
+    decaying by ``c_in`` every idle interval reaches them)."""
+    return torch.where(x.abs() < _FLT_MIN, torch.zeros_like(x), x)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a*b + c`` with one rounding, as a fused multiply-add:
+    the float32 product is exact in float64, so only the sum rounds (a
+    second rounding to float32 could differ from a true FMA only on an
+    exact float32 tie after the float64 sum, which these inputs do not
+    reach in practice); subnormal results flush to zero."""
+    return _ftz((a.double() * b.double() + c.double()).float())
 
 
 # lint: ignore[parity-drift] -- the port imports nothing of repro;
@@ -113,12 +145,14 @@ def latency_ratio(latencies: torch.Tensor,
 # copy against repro.core.offload.target_percentage
 def target_percentage(r_prime: torch.Tensor,
                       cfg: OffloadConfig) -> torch.Tensor:
-    """Eq (3): piecewise-linear map from decayed ratio to traffic percent."""
-    span = max(cfg.c_hard - cfg.c_soft, 1e-9)
-    # lint: ignore[parity-drift] -- the same copy as the def above, held
-    # by tests/test_torch_control.py::test_eq1_eq3_match_reference
-    lin = 100.0 * (r_prime - cfg.c_soft) / span
-    return torch.clamp(lin, 0.0, 100.0)
+    """Eq (3): piecewise-linear map from decayed ratio to traffic percent.
+    ``100 * (r' - c_soft) / span`` as XLA folds it in the reference's
+    jitted kernel: ``(r' - c_soft) * (100 * (1 / span))``, constants in
+    float32."""
+    span = torch.tensor(max(cfg.c_hard - cfg.c_soft, 1e-9),
+                        dtype=torch.float32)
+    scale = torch.tensor(100.0, dtype=torch.float32) * (1.0 / span)
+    return torch.clamp((r_prime - cfg.c_soft) * scale, 0.0, 100.0)
 
 
 def push_ratio(state: OffloadState, r_l: torch.Tensor) -> OffloadState:
@@ -133,7 +167,9 @@ def push_ratio(state: OffloadState, r_l: torch.Tensor) -> OffloadState:
 
 def decayed_ratio(state: OffloadState, cfg: OffloadConfig) -> torch.Tensor:
     """Eq (2): exponentially decayed weighted mean over each row's ring,
-    newest first, renormalized over the entries filled so far."""
+    newest first, renormalized over the entries filled so far.  As in the
+    reference's jitted kernel, the weighted sum is a newest-first chain of
+    FMAs, ``acc = fma(ratio_k, w_k, acc)``, and the weight sum plain adds."""
     n = cfg.c_t + 1
     k = torch.arange(n, dtype=torch.int32)
     idx = torch.remainder(state.head[:, None] - k[None, :], n)
@@ -142,17 +178,42 @@ def decayed_ratio(state: OffloadState, cfg: OffloadConfig) -> torch.Tensor:
     mask = (k[None, :] < torch.clamp(state.filled[:, None], min=1)).to(
         torch.float32)
     wm = w[None, :] * mask
-    return (ordered * wm).sum(dim=-1) / torch.clamp(wm.sum(dim=-1), min=1e-9)
+    num = torch.zeros(state.R.shape, dtype=torch.float32)
+    den = torch.zeros(state.R.shape, dtype=torch.float32)
+    for j in range(n):
+        num = _fma(ordered[:, j], wm[:, j], num)
+        den = den + wm[:, j]
+    return num / torch.clamp(den, min=1e-9)
+
+
+def link_x100(link_bytes_per_s: float) -> float:
+    """``100 * link_bytes_per_s`` rounded once to float32 on the host,
+    as the reference hands it to its rows kernel."""
+    return float(np.float32(100.0 * link_bytes_per_s))
 
 
 def offload_update(state: OffloadState, latencies, valid,
-                   cfg: OffloadConfig) -> Tuple[OffloadState, torch.Tensor]:
+                   cfg: OffloadConfig,
+                   demand_rps: Optional[torch.Tensor] = None
+                   ) -> Tuple[OffloadState, torch.Tensor]:
     """One controller step over every row: Eqs (1), (2), (3), (4) in
-    order.  Returns (new_state, R) with R the (F,) percentage of traffic
-    to send down-chain."""
+    order, then, when ``cfg.net_aware``, the cap by what the link carries
+    at ``demand_rps`` (F,).  Returns (new_state, R) with R the (F,)
+    percentage of traffic to send down-chain, bitwise equal to the
+    reference's rows kernel (subnormal results flushed, as XLA does)."""
     r_l = latency_ratio(latencies, valid)               # Eq (1)
     state = push_ratio(state, r_l)
     r_prime = decayed_ratio(state, cfg)                 # Eq (2)
     r_t = target_percentage(r_prime, cfg)               # Eq (3)
-    R = state.R * cfg.c_in + r_t * (1.0 - cfg.c_in)     # Eq (4)
+    # Eq (4), contracted by XLA into fma(r_t, 1 - c_in, R * c_in)
+    c_in = torch.tensor(cfg.c_in, dtype=torch.float32)
+    one_m = torch.tensor(1.0 - cfg.c_in, dtype=torch.float32)
+    R = _fma(r_t, one_m.expand_as(r_t), _ftz(state.R * c_in))
+    if cfg.net_aware:
+        rps = torch.as_tensor(demand_rps, dtype=torch.float32)
+        req = torch.tensor(cfg.req_bytes, dtype=torch.float32)
+        cap = (torch.tensor(link_x100(cfg.link_bytes_per_s),
+                            dtype=torch.float32)
+               / torch.clamp(rps * req, min=1e-9))
+        R = torch.minimum(R, torch.clamp(cap, 0.0, 100.0))
     return OffloadState(state.ratios, state.head, state.filled, R), R

@@ -4,11 +4,14 @@ The port's counterpart of ``repro/core/policy.py``:
 
   * :class:`Policy` — the protocol every traffic policy implements
     (``init_state / observe / update / route``), plus :meth:`Policy.parse`
-    for the shorthands this slice supports: ``0``..``100`` (a static
-    split) and ``"auto"`` (the paper's Eqs (1)-(4)).  ``"auto+net"``,
-    ``"auto+hedge"`` and ``"+migrate"`` raise ``NotImplementedError``
-    until their slice is ported.
-  * :class:`StaticSplit`, :class:`AutoOffload`.
+    for the reference's shorthands: ``0``..``100`` (a static split),
+    ``"auto"`` (the paper's Eqs (1)-(4)) and its ``+net`` / ``+migrate``
+    modifiers in any combination.  ``+hedge`` raises
+    ``NotImplementedError`` until hedging is ported (ROADMAP.md item 3).
+  * :class:`StaticSplit`, :class:`AutoOffload`, :class:`NetAwareOffload`
+    (the link-capacity cap), :class:`MigratingOffload` (a policy object
+    with a migration threshold; the simulator migrates, the live runtime
+    refuses it until live migration is ported).
   * :class:`ControlLoop` — one scrape-and-update cycle: latency windows,
     in-flight queue-age mixing, demand RPS, policy update; one controller
     boundary per adjacent tier pair.  The port keeps the reference's
@@ -21,7 +24,8 @@ the caller owns, and hands them to :mod:`repro_torch.core.router`.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Tuple, Union
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,6 +45,8 @@ class Policy:
     """
 
     spec: str = "policy"
+    #: mid-stream migration threshold (percent of R_t); None = never
+    migrate_threshold: Optional[float] = None
 
     def init_state(self, num_functions: int) -> Any:
         return None
@@ -99,14 +105,20 @@ class Policy:
 
     @staticmethod
     def parse(spec: PolicySpec,
-              offload_cfg: Optional[offload.OffloadConfig] = None
-              ) -> "Policy":
-        """``0``..``100`` (number or numeric string) -> StaticSplit;
-        ``"auto"`` -> AutoOffload; Policy instances pass through.  The
-        reference's ``+net``, ``+hedge`` and ``+migrate`` modifiers raise
-        ``NotImplementedError``; anything else ``ValueError``."""
+              offload_cfg: Optional[offload.OffloadConfig] = None,
+              link_bytes_per_s: Optional[float] = None,
+              req_bytes: Optional[float] = None) -> "Policy":
+        """The reference's grammar: ``0``..``100`` (number or numeric
+        string) -> StaticSplit; ``"auto"`` -> AutoOffload, optionally with
+        the modifiers ``+net`` (NetAwareOffload, capped against
+        ``link_bytes_per_s`` and ``req_bytes``) and ``+migrate`` (a
+        migration threshold) in any order, the canonical ``spec``
+        re-normalized to net, hedge, migrate order.  Policy instances pass
+        through.  ``+hedge`` raises ``NotImplementedError``; anything else
+        ``ValueError``."""
         if isinstance(spec, Policy):
             return spec
+        cfg = offload_cfg or offload.OffloadConfig()
         if isinstance(spec, (int, float)):
             return StaticSplit(float(spec))
         if isinstance(spec, str):
@@ -117,13 +129,25 @@ class Policy:
                 pass
             parts = s.split("+")
             mods = set(parts[1:])
-            if parts[0] == "auto" and not mods:
-                return AutoOffload(offload_cfg)
             if parts[0] == "auto" and mods <= {"net", "hedge", "migrate"}:
-                raise NotImplementedError(
-                    f"policy {spec!r}: the +net, +hedge and +migrate "
-                    f"modifiers are not ported yet (ROADMAP.md, the "
-                    f"controls left out of the first slice)")
+                if "hedge" in mods:
+                    raise NotImplementedError(
+                        f"policy {spec!r}: the +hedge modifier is not "
+                        f"ported yet (ROADMAP.md, open item 3, hedging)")
+                if "net" in mods:
+                    pol: AutoOffload = NetAwareOffload(
+                        cfg, link_bytes_per_s=link_bytes_per_s,
+                        req_bytes=req_bytes)
+                elif "migrate" in mods:
+                    pol = MigratingOffload(cfg)
+                else:
+                    pol = AutoOffload(cfg)
+                if "migrate" in mods and pol.migrate_threshold is None:
+                    pol.migrate_threshold = MigratingOffload.default_threshold
+                pol.spec = "auto" + "".join(
+                    "+" + m for m in ("net", "hedge", "migrate")
+                    if m in mods)
+                return pol
         raise ValueError(f"unknown policy spec {spec!r}")
 
 
@@ -146,7 +170,8 @@ class StaticSplit(Policy):
 
 class AutoOffload(Policy):
     """The paper's adaptive controller: Eqs (1)-(4) on the latency
-    windows of the boundary's tier."""
+    windows of the boundary's tier, with the net-aware cap when
+    ``cfg.net_aware`` (per-call demand from the loop)."""
 
     spec = "auto"
 
@@ -159,8 +184,53 @@ class AutoOffload(Policy):
     def update(self, state, latencies, valid, demand_rps):
         state, R = offload.offload_update(
             state, torch.as_tensor(np.asarray(latencies, np.float32)),
-            torch.as_tensor(np.asarray(valid, bool)), self.cfg)
+            torch.as_tensor(np.asarray(valid, bool)), self.cfg,
+            demand_rps=torch.as_tensor(np.asarray(demand_rps, np.float32)))
         return state, R.numpy().astype(np.float32)
+
+    def set_link_capacity(self, link_bytes_per_s: float) -> bool:
+        """Re-cap a net-aware controller against a changed link (a fault
+        shrinks or restores it).  The boundary's state is untouched; only
+        the capacity the next cap divides changes.  No-op (False) for a
+        controller that is not net-aware."""
+        if not self.cfg.net_aware:
+            return False
+        self.cfg = dataclasses.replace(
+            self.cfg, link_bytes_per_s=float(link_bytes_per_s))
+        return True
+
+
+class NetAwareOffload(AutoOffload):
+    """Beyond-paper extension: cap the offloaded share by what the link
+    carries at the current demand (``R <= 100 * link / (rps * bytes)``)."""
+
+    spec = "auto+net"
+
+    def __init__(self, cfg: Optional[offload.OffloadConfig] = None,
+                 link_bytes_per_s: Optional[float] = None,
+                 req_bytes: Optional[float] = None):
+        cfg = cfg or offload.OffloadConfig()
+        repl: Dict[str, Any] = {"net_aware": True}
+        if link_bytes_per_s is not None:
+            repl["link_bytes_per_s"] = link_bytes_per_s
+        if req_bytes is not None:
+            repl["req_bytes"] = req_bytes
+        super().__init__(dataclasses.replace(cfg, **repl))
+
+
+class MigratingOffload(AutoOffload):
+    """Auto controller + mid-stream migration (``"auto+migrate"``): once
+    a boundary's R_t reaches ``migrate_threshold`` the simulator ships
+    ``ceil(in_service * R_t / 100)`` in-service requests down-chain.  The
+    live runtime refuses it until live migration is ported."""
+
+    spec = "auto+migrate"
+    default_threshold = 50.0
+
+    def __init__(self, cfg: Optional[offload.OffloadConfig] = None,
+                 migrate_threshold: float = default_threshold):
+        super().__init__(cfg)
+        self.migrate_threshold = float(migrate_threshold)
 
 
 class ControlLoop:
@@ -171,15 +241,26 @@ class ControlLoop:
     Eq (1) fire before slow completions drain out), derives demand RPS
     and asks each boundary's policy for fresh R_t percentages.  Boundary
     b is driven by tier b's signals and yields R_t[b], the percentage of
-    tier b's load pushed down the chain.
+    tier b's load pushed down the chain.  Every row's update reproduces
+    the reference's rounding, so a trajectory is bitwise the reference's
+    on the same inputs, whichever of its loops (per boundary or stacked
+    rows) the reference takes.
     """
 
     def __init__(self, policy: PolicySpec, num_functions: int,
                  window: int = 64, control_interval_s: float = 1.0,
                  num_tiers: int = 2,
-                 boundary_policies: Optional[Sequence[PolicySpec]] = None):
+                 boundary_policies: Optional[Sequence[PolicySpec]] = None,
+                 eq1: str = "window", sketch=None):
         if num_tiers < 1:
             raise ValueError(f"num_tiers must be >= 1, got {num_tiers}")
+        if eq1 == "sketch" or sketch is not None:
+            raise NotImplementedError(
+                'eq1="sketch": the streaming-sketch Eq-(1) front end is '
+                "not ported yet (ROADMAP.md, open item 3)")
+        if eq1 != "window":
+            raise ValueError(f'eq1 must be "window" or "sketch", got {eq1!r}')
+        self.eq1 = eq1
         self.num_functions = num_functions
         self.window = window
         self.control_interval_s = control_interval_s

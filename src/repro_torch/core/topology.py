@@ -9,9 +9,12 @@ semantics.
 
 ``page_size`` switches a tier's endpoints to the paged KV pool
 (``pool_pages`` pages of ``page_size`` tokens, default ``slots`` full
-rows), with the reference's validation.  Not ported yet (ROADMAP.md):
-the cost-modeled tiers (``model=``, the hardware cost table) raise
-``NotImplementedError``; the simulator-only fields are absent.
+rows), with the reference's validation.  ``service_rate_mult`` is the
+simulator's service speed relative to the workload's edge time (``None``
+= the position's default).  :meth:`Topology.device_edge_cloud` is the
+reference's canonical 3-tier chain.  Not ported yet (ROADMAP.md): the
+cost-modeled tiers (``model=``, ``cost_model=True``, the hardware cost
+table) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +32,11 @@ class TierSpec:
     a bounded gateway backlog of ``slots * queue_depth_per_slot``
     (``None`` = unbounded, the elastic cloud).  ``page_size`` (which must
     divide ``max_len``) makes the KV pool paged, of ``pool_pages`` pages
-    (at least one full row; default ``slots`` full rows)."""
+    (at least one full row; default ``slots`` full rows).
+    ``service_rate_mult`` drives the simulator only: ``mean =
+    edge_service_s / mult``; ``None`` runs the ingress tier at the
+    profile's edge speed, the deepest at its cloud speed and those between
+    geometrically between."""
 
     name: str
     slots: int = 4
@@ -44,6 +51,8 @@ class TierSpec:
     # paged KV pool (None = dense per-slot rows)
     page_size: Optional[int] = None
     pool_pages: Optional[int] = None
+    # simulator only: service speed relative to the profile's edge time
+    service_rate_mult: Optional[float] = None
     # not ported yet: asking for it raises
     model: Optional[str] = None
 
@@ -117,6 +126,9 @@ class Topology:
                 raise TypeError(f"expected TierSpec, got {type(t).__name__}")
             if t.slots < 0:
                 raise ValueError(f"tier {t.name!r}: negative slots")
+            if t.service_rate_mult is not None and t.service_rate_mult <= 0:
+                raise ValueError(
+                    f"tier {t.name!r}: service_rate_mult must be > 0")
             if (t.queue_depth_per_slot is not None
                     and t.queue_depth_per_slot < 0):
                 raise ValueError(
@@ -137,6 +149,17 @@ class Topology:
         self.links: Tuple[LinkSpec, ...] = links
         self.waterfall = bool(waterfall)
 
+    @property
+    def num_tiers(self) -> int:
+        return len(self.tiers)
+
+    @property
+    def names(self) -> Tuple[str, ...]:
+        return tuple(t.name for t in self.tiers)
+
+    def index(self, name: str) -> int:
+        return self.names.index(name)
+
     def __len__(self) -> int:
         return len(self.tiers)
 
@@ -144,8 +167,7 @@ class Topology:
         return iter(self.tiers)
 
     def __repr__(self) -> str:
-        chain = " -> ".join(t.name for t in self.tiers)
-        return f"Topology({chain}, waterfall={self.waterfall})"
+        return f"Topology({' -> '.join(self.names)}, waterfall={self.waterfall})"
 
     @classmethod
     def pair(cls, edge, cloud, link: Optional[LinkSpec] = None) -> "Topology":
@@ -160,6 +182,35 @@ class Topology:
         return cls(tiers=(_as_spec(edge, "edge"),
                           _as_spec(cloud, "cloud", queue_depth=None)),
                    links=(link or LinkSpec(rtt_s=0.0),), waterfall=False)
+
+    @classmethod
+    def device_edge_cloud(cls, device_slots: int = 2, edge_slots: int = 4,
+                          cloud_slots: int = 64, max_len: int = 256,
+                          autoscaling: Optional[AutoscalingPolicy] = None,
+                          cost_model: bool = False) -> "Topology":
+        """The canonical 3-tier chain: on-device -> edge site -> cloud,
+        waterfall on.  The device runs at half the edge's speed behind a
+        short LAN hop (queue depth 4), the edge at the profile's edge speed
+        (depth 8), the elastic cloud at the profile default (unbounded).
+        ``cost_model=True`` needs the H100 cost table and raises."""
+        if cost_model:
+            raise NotImplementedError(
+                "device_edge_cloud(cost_model=True): cost-modeled tiers "
+                "need the H100 cost table, not ported yet (ROADMAP.md)")
+        return cls(
+            tiers=(TierSpec("device", slots=device_slots, max_len=max_len,
+                            autoscaling=autoscaling,
+                            service_rate_mult=0.5, queue_depth_per_slot=4),
+                   TierSpec("edge", slots=edge_slots, max_len=max_len,
+                            autoscaling=autoscaling,
+                            service_rate_mult=1.0, queue_depth_per_slot=8),
+                   TierSpec("cloud", slots=cloud_slots, max_len=max_len,
+                            autoscaling=autoscaling,
+                            service_rate_mult=None,
+                            queue_depth_per_slot=None)),
+            links=(LinkSpec(rtt_s=0.005, bandwidth_Bps=50e6),
+                   LinkSpec(rtt_s=0.04, bandwidth_Bps=100e6)),
+            waterfall=True)
 
 
 def _as_spec(obj, name: str, queue_depth: Optional[int] = 8) -> TierSpec:

@@ -8,9 +8,13 @@ policy split the load — the port's version of ``python -m
 repro.launch.serve``.  Runs on the card by default; ``--device cpu``
 runs the plain attention versions on the CPU.  ``--full`` serves the
 full-width configuration instead of the smoke one (weights are random,
-drawn from ``--seed`` on the device).
+drawn from ``--seed`` on the device).  ``--device-slots N`` puts an
+on-device ingress tier in front of the edge (a 3-tier device -> edge ->
+cloud chain, waterfall on); ``--net-aware`` is ``--policy auto+net``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full --rounds 20
+    PYTHONPATH=src python -m repro_torch.launch.serve --device-slots 2 \
+        --net-aware
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --rounds 6 --policy auto
 """
@@ -26,8 +30,8 @@ from repro_torch import configs
 from repro_torch.device import resolve
 from repro_torch.models import model_zoo
 from repro_torch.platform import (AutoscalingPolicy, Continuum,
-                                  FunctionSpec, OffloadConfig, Request,
-                                  TierConfig)
+                                  FunctionSpec, LinkSpec, OffloadConfig,
+                                  Request, TierConfig, TierSpec, Topology)
 
 
 def main():
@@ -39,9 +43,14 @@ def main():
     ap.add_argument("--rps-high", type=float, default=8.0)
     ap.add_argument("--edge-slots", type=int, default=2)
     ap.add_argument("--cloud-slots", type=int, default=16)
+    ap.add_argument("--device-slots", type=int, default=0,
+                    help="> 0 adds an on-device ingress tier in front of "
+                         "the edge (3-tier device/edge/cloud chain)")
     ap.add_argument("--max-new", type=int, default=4)
     ap.add_argument("--policy", default="auto",
-                    help="traffic policy: 0..100 | auto")
+                    help="traffic policy: 0..100 | auto | auto+net")
+    ap.add_argument("--net-aware", action="store_true",
+                    help="shorthand for --policy auto+net")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -55,12 +64,26 @@ def main():
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model_zoo.init(cfg, gen)
 
-    cc = Continuum(
-        edge=TierConfig(slots=args.edge_slots, max_len=64),
-        cloud=TierConfig(slots=args.cloud_slots, max_len=64,
-                         extra_latency_s=0.02),
-        policy=args.policy, offload_cfg=OffloadConfig(), seed=args.seed,
-        device=device)
+    policy = "auto+net" if args.net_aware else args.policy
+    if args.device_slots > 0:
+        topo = Topology(
+            tiers=(TierSpec("device", slots=args.device_slots, max_len=64),
+                   TierSpec("edge", slots=args.edge_slots, max_len=64,
+                            extra_latency_s=0.005),
+                   TierSpec("cloud", slots=args.cloud_slots, max_len=64,
+                            extra_latency_s=0.02)),
+            links=(LinkSpec(rtt_s=0.005, bandwidth_Bps=50e6),
+                   LinkSpec(rtt_s=0.04, bandwidth_Bps=100e6)))
+        cc = Continuum.from_topology(
+            topo, policy=policy, offload_cfg=OffloadConfig(),
+            seed=args.seed, device=device)
+    else:
+        cc = Continuum(
+            edge=TierConfig(slots=args.edge_slots, max_len=64),
+            cloud=TierConfig(slots=args.cloud_slots, max_len=64,
+                             extra_latency_s=0.02),
+            policy=policy, offload_cfg=OffloadConfig(), seed=args.seed,
+            device=device)
     spec = FunctionSpec(name=args.arch, arch=args.arch, revision=1,
                         autoscaling=AutoscalingPolicy())
     cc.deploy(spec, cfg, params)
@@ -93,6 +116,7 @@ def main():
           f"tokens_per_decode_step="
           f"{total * args.max_new / max(steps, 1):.1f} "
           f"drain_ticks={drained} "
+          f"spilled={sum(r['spilled'] for r in cc.log)} "
           f"rejected={sum(r['rejected'] for r in cc.log)} "
           f"device={device}")
 

@@ -1,9 +1,10 @@
 """``repro_torch.platform`` — the front door to the port's continuum.
 
-The counterpart of ``repro/platform.py`` for the live runtime::
+The counterpart of ``repro/platform.py``, for both deployments::
 
-    from repro_torch.platform import Continuum, TierConfig
+    from repro_torch.platform import Continuum, TierConfig, Topology
 
+    # live, two-tier sugar: deploy models, submit requests, tick
     cc = Continuum(edge=TierConfig(slots=2), cloud=TierConfig(slots=16),
                    policy="auto")            # device="cuda" by default
     cc.deploy(spec, model_cfg, params)       # params already on the card
@@ -11,34 +12,66 @@ The counterpart of ``repro/platform.py`` for the live runtime::
     cc.tick()                                # scrape -> route -> serve
     cc.drain()                               # finish every backlog
 
-A chain of :class:`TierSpec` (``Continuum(topology=Topology(...))``)
-may give a tier a paged KV pool with prefix sharing
+    # live, N-tier, trace-driven, net-aware
+    cc = Continuum.from_topology(Topology.device_edge_cloud(),
+                                 policy="auto+net", req_bytes=6.0e6,
+                                 trace=Trace.bursty(0.5, 8.0, 30.0))
+
+    # simulated: the paper's testbed, same policy objects, any topology
+    res = Continuum.simulate("matmult", "auto+net")
+    res3 = Continuum.simulate("matmult", "auto",
+                              topology=Topology.device_edge_cloud(),
+                              faults=edge_brownout(30.0, 60.0))
+    table = Continuum.sweep("matmult", policies=(0.0, 50.0, "auto"))
+
+A tier of the chain may hold a paged KV pool with prefix sharing
 (``TierSpec(page_size=16, pool_pages=...)``).  Policy shorthands: a
-number in [0, 100] (static split) or ``"auto"`` (the paper's Eqs
-(1)-(4)).  The simulator (``Continuum.simulate`` / ``sweep``) is not
-ported yet.
+number in [0, 100] (static split), ``"auto"`` (the paper's Eqs (1)-(4)),
+``"auto+net"`` (the link-capacity cap) and ``"auto+migrate"`` (simulator
+only).  Hedging, live migration, live faults and the sketch front end
+raise (ROADMAP.md, open item 3).  The simulator is numpy on the host and
+runs anywhere; the live runtime defaults to the card.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Sequence
+
 from repro_torch.core.offload import OffloadConfig
-from repro_torch.core.policy import (AutoOffload, ControlLoop, Policy,
-                                     StaticSplit)
+from repro_torch.core.policy import (AutoOffload, ControlLoop,
+                                     MigratingOffload, NetAwareOffload,
+                                     Policy, PolicySpec, StaticSplit)
 from repro_torch.core.replication import AutoscalingPolicy, FunctionSpec
+from repro_torch.core.simulator import (ContinuumSimulator, SimConfig,
+                                        SimResult)
 from repro_torch.core.topology import LinkSpec, TierSpec, Topology
 from repro_torch.serving.engine import Request
 from repro_torch.serving.tiers import EdgeCloudContinuum, Gateway, TierConfig
+from repro_torch.workloads.faults import (FaultEvent, FaultSchedule,
+                                          cloud_partition, edge_brownout,
+                                          merge_schedules, tier_outage)
+from repro_torch.workloads.trace import Trace
 
 __all__ = [
     "Continuum", "TierConfig", "TierSpec", "LinkSpec", "Topology",
-    "Gateway", "Request", "Policy", "StaticSplit", "AutoOffload",
+    "Gateway", "SimConfig", "SimResult", "Request", "Policy",
+    "StaticSplit", "AutoOffload", "NetAwareOffload", "MigratingOffload",
     "ControlLoop", "OffloadConfig", "AutoscalingPolicy", "FunctionSpec",
+    "Trace", "FaultEvent", "FaultSchedule",
+    "edge_brownout", "cloud_partition", "tier_outage", "merge_schedules",
 ]
 
 
 class Continuum(EdgeCloudContinuum):
-    """The live batched runtime (see
-    :class:`~repro_torch.serving.tiers.EdgeCloudContinuum`)."""
+    """Instances are the live batched runtime (see
+    :class:`~repro_torch.serving.tiers.EdgeCloudContinuum`); the
+    classmethods run the same policies through the simulator."""
+
+    @classmethod
+    def from_topology(cls, topology: Topology, policy: PolicySpec = "auto",
+                      **kwargs) -> "Continuum":
+        """The live runtime over an explicit N-tier chain."""
+        return cls(policy=policy, topology=topology, **kwargs)
 
     def drain(self, max_ticks: int = 1000) -> int:
         """Tick until every gateway backlog and in-flight slot is empty.
@@ -53,3 +86,34 @@ class Continuum(EdgeCloudContinuum):
                 f"drain: {self.queued} queued / {self.in_flight} in flight "
                 f"after {max_ticks} ticks")
         return max_ticks
+
+    @classmethod
+    def simulate(cls, workload: str, policy: PolicySpec,
+                 cfg: Optional[SimConfig] = None,
+                 offload_cfg: Optional[OffloadConfig] = None,
+                 topology: Optional[Topology] = None,
+                 trace=None, faults: Optional[FaultSchedule] = None,
+                 eq1: str = "window", sketch=None) -> SimResult:
+        """One simulator run of ``workload`` under ``policy`` over the
+        paper's 2-tier apparatus or an explicit ``topology``; a ``trace``
+        replaces the ramped-Poisson arrivals and ``faults`` injects link
+        and tier faults mid-run."""
+        return ContinuumSimulator(workload, policy, cfg or SimConfig(),
+                                  offload_cfg=offload_cfg,
+                                  topology=topology, trace=trace,
+                                  faults=faults, eq1=eq1,
+                                  sketch=sketch).run()
+
+    @classmethod
+    def sweep(cls, workload: str,
+              policies: Sequence[PolicySpec] = (0.0, 25.0, 50.0, 75.0,
+                                                100.0, "auto"),
+              cfg: Optional[SimConfig] = None,
+              topology: Optional[Topology] = None,
+              trace=None, faults: Optional[FaultSchedule] = None
+              ) -> Dict[str, SimResult]:
+        """The paper's Table 2 row for one workload."""
+        cfg = cfg or SimConfig()
+        return {str(p): cls.simulate(workload, p, cfg, topology=topology,
+                                     trace=trace, faults=faults)
+                for p in policies}

@@ -1,8 +1,8 @@
 """The live N-tier continuum runtime.
 
 The port's counterpart of ``repro/serving/tiers.py``, for the default
-path: the continuous-batching scheduler, the ``"auto"`` and static
-policies, exact-window Eq (1), no trace and no faults::
+path: the continuous-batching scheduler, the ``"auto"``, ``"auto+net"``
+and static policies, exact-window Eq (1), and trace-driven arrivals::
 
     EdgeCloudContinuum (over a Topology chain, ingress at tier 0)
       ├── tier 0..N-1:  Gateway (bounded backlog queue) + Endpoint pool
@@ -29,8 +29,13 @@ A tier whose spec sets ``page_size`` serves from a paged KV pool: its
 admission walks the queue head in pages (memory actually reserved, not
 slots alone), and its KPA scrape meters demand in full-row equivalents
 of pages.  Every tier's endpoint holds a reference to the one set of
-weights deployed.  Hedging, migration, faults, traces, the wave
-scheduler and the sketch front end are not ported yet (ROADMAP.md).
+weights deployed.  Each boundary parses the policy against its own link's
+bandwidth and the ``req_bytes`` hint, so ``"auto+net"`` caps offload by
+the link actually crossed (as the simulator's boundaries do).  A
+``trace=`` submits each row at the top of the tick covering its arrival
+time.  Hedging, live migration (a policy with a migrate threshold), live
+faults (``faults=``), the wave scheduler and the sketch front end are not
+ported yet and raise (ROADMAP.md, open item 3).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import zlib
 from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
 
@@ -53,6 +59,7 @@ from repro_torch.core.topology import TierSpec, Topology
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.common import ModelConfig
 from repro_torch.serving.engine import Endpoint, Request
+from repro_torch.workloads.trace import Trace
 
 #: latency charged to a rejected request (the queue-proxy's fast 503)
 REJECT_LATENCY_S = 0.005
@@ -295,7 +302,12 @@ class EdgeCloudContinuum:
     """The platform: replication + policy-driven offloading across an
     N-tier topology, with per-tier gateways and a continuous-batching
     scheduler.  ``device`` (default ``"cuda"``) is where every tier's
-    endpoints run; ``seed`` seeds the routing generator."""
+    endpoints run; ``seed`` seeds the routing generator and, apart, the
+    trace's prompt tokens.  ``req_bytes`` is the average payload a
+    net-aware boundary divides its link by; ``trace`` drives arrivals
+    (``trace_prompts="per_fn"`` gives each function one prompt per
+    length).  ``faults`` and a migrate threshold raise: live faults and
+    live migration are not ported yet (ROADMAP.md, open item 3)."""
 
     def __init__(self, edge=None, cloud=None,
                  policy: PolicySpec = "auto",
@@ -303,7 +315,20 @@ class EdgeCloudContinuum:
                  window: int = 64, seed: int = 0,
                  control_interval_s: float = 1.0,
                  topology: Optional[Topology] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 req_bytes: Optional[float] = None,
+                 trace: Optional[Trace] = None,
+                 faults=None,
+                 trace_vocab: int = 128,
+                 trace_prompts: str = "random"):
+        if trace_prompts not in ("random", "per_fn"):
+            raise ValueError(
+                f"trace_prompts must be 'random' or 'per_fn', "
+                f"got {trace_prompts!r}")
+        if faults is not None:
+            raise NotImplementedError(
+                "faults=: live fault injection is not ported yet "
+                "(ROADMAP.md, open item 3); the simulator takes faults")
         self.device = resolve(device)
         if topology is None:
             if edge is None or cloud is None:
@@ -319,7 +344,14 @@ class EdgeCloudContinuum:
             for spec in topology.tiers]
         self.offload_cfg = offload_cfg or OffloadConfig()
         self._policy_spec: PolicySpec = policy
-        self.policy = Policy.parse(policy, offload_cfg=self.offload_cfg)
+        self.req_bytes = req_bytes
+        self.policy = Policy.parse(policy, offload_cfg=self.offload_cfg,
+                                   req_bytes=req_bytes)
+        if self.policy.migrate_threshold is not None:
+            raise NotImplementedError(
+                f"policy {self.policy.spec!r}: live mid-stream migration "
+                f"is not ported yet (ROADMAP.md, open item 3); the "
+                f"simulator migrates")
         self.window = window
         self.control_interval_s = control_interval_s
         # one reconciler per shallower tier
@@ -344,6 +376,14 @@ class EdgeCloudContinuum:
         self._clock = 0.0          # logical control-plane time (scrapes)
         self._tick_no = 0
         self._rejected_seen = 0
+        # trace-driven arrivals: rows enter at the top of the tick covering
+        # their arrival time, prompt tokens from a generator of their own
+        self.trace = trace
+        self.trace_vocab = trace_vocab
+        self.trace_prompts = trace_prompts
+        self.trace_requests: List[Request] = []
+        self._trace_pos = 0
+        self._trace_rng = np.random.default_rng(seed)
 
     # ingress / deepest tier aliases (the historical two-tier attributes)
     @property
@@ -381,14 +421,21 @@ class EdgeCloudContinuum:
             self.fn_names.append(spec.name)
             self._crossings = [np.concatenate([c, np.zeros(1, np.int64)])
                                for c in self._crossings]
+            # each boundary parses the policy against ITS link, so
+            # auto+net caps by the link actually crossed (as the simulator)
+            links = self.topology.links
             self.control = ControlLoop(
                 self.policy, len(self.fn_names), window=self.window,
                 control_interval_s=self.control_interval_s,
                 num_tiers=len(self.tiers),
                 boundary_policies=[
                     Policy.parse(self._policy_spec,
-                                 offload_cfg=self.offload_cfg)
-                    for _ in range(self._num_boundaries)])
+                                 offload_cfg=self.offload_cfg,
+                                 link_bytes_per_s=(
+                                     links[min(b, len(links) - 1)]
+                                     .bandwidth_Bps if links else None),
+                                 req_bytes=self.req_bytes)
+                    for b in range(self._num_boundaries)])
 
     # -- request path (paper §3.3.2) ------------------------------------------
     def submit(self, fn_name: str, req: Request) -> bool:
@@ -426,6 +473,41 @@ class EdgeCloudContinuum:
             self.link_bytes[l] += item.req.tokens.nbytes
         self._count_crossing(l + 1, item.fn)
 
+    def _ingest_trace(self) -> int:
+        """Submit every trace row arriving within the interval this tick
+        covers.  Rows name functions by the trace's ``fn_names``; a name
+        not deployed here falls back to deployment order by index."""
+        if self.trace is None:
+            return 0
+        horizon = self._clock + self.control_interval_s
+        n = 0
+        while (self._trace_pos < len(self.trace)
+               and float(self.trace.t[self._trace_pos]) < horizon):
+            i = self._trace_pos
+            self._trace_pos += 1
+            name = self.trace.fn_names[int(self.trace.fn[i])]
+            if name not in self._fn_ids:
+                if not self.fn_names:
+                    raise RuntimeError(
+                        "trace ingestion before any function is deployed")
+                name = self.fn_names[int(self.trace.fn[i])
+                                     % len(self.fn_names)]
+            L = max(int(self.trace.prompt_len[i]), 1)
+            if self.trace_prompts == "per_fn":
+                fn_rng = np.random.default_rng(
+                    zlib.crc32(f"{name}:{L}".encode()))
+                tokens = fn_rng.integers(0, self.trace_vocab,
+                                         L).astype(np.int32)
+            else:
+                tokens = self._trace_rng.integers(
+                    0, self.trace_vocab, L).astype(np.int32)
+            req = Request(rid=len(self.trace_requests), tokens=tokens,
+                          max_new=max(int(self.trace.max_new[i]), 1))
+            self.trace_requests.append(req)
+            self.submit(name, req)
+            n += 1
+        return n
+
     def controller_update(self) -> np.ndarray:
         """One scrape-and-update cycle: boundary b sees tier b's latency
         windows, its gateway's backlog ages and the demand that crossed
@@ -449,7 +531,9 @@ class EdgeCloudContinuum:
     def tick(self) -> Dict:
         """One scheduler round: controller update, tier assignment of the
         ingress backlog, then the continuous-batching loop over every
-        tier.  Returns (and logs) the round's record."""
+        tier.  Trace rows due this interval enter first (their demand is
+        part of this scrape).  Returns (and logs) the round's record."""
+        self._ingest_trace()
         R = self.controller_update()
         self._clock += self.control_interval_s
         self._tick_no += 1

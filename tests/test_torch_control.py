@@ -2,11 +2,14 @@
 JAX reference, on the CPU.
 
 Same inputs, made with numpy from a seed, go through ``repro.core`` and
-``repro_torch.core``.  Float controller outputs must agree to float32
-rounding (the two frameworks may round a multiply-add differently);
-routing decisions fed the reference's own ``jax.random`` draws must be
-identical.
+``repro_torch.core``.  ControlLoop R_t trajectories are bitwise equal
+(the port reproduces the FMAs and constant folding of the reference's
+jitted rows kernel), ``"auto+net"`` caps included; eager Eq (1)/(3)
+agree to float32 rounding; routing decisions fed the reference's own
+``jax.random`` draws must be identical.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -67,12 +70,15 @@ def test_eq1_eq3_match_reference(seed):
         np.asarray(j_offload.target_percentage(r, cfg_j)), **R_TOL)
 
 
-@pytest.mark.parametrize("num_tiers,F", [(2, 1), (2, 3), (3, 2)])
-def test_control_loop_trajectories_match_reference(num_tiers, F):
+@pytest.mark.parametrize("num_tiers,F,T,seed", [
+    (2, 1, 14, 0), (2, 3, 14, 0), (3, 2, 14, 0),
+    (3, 3, 200, 0), (3, 3, 200, 1), (3, 3, 200, 2)])
+def test_control_loop_trajectories_match_reference(num_tiers, F, T, seed):
     """step_tiers R_t trajectories fed the same windows, queue ages and
-    arrivals, plus the 2-tier ``step`` on the ingress boundary."""
-    rng = np.random.default_rng(7 + num_tiers + F)
-    W, T = 16, 14
+    arrivals are bitwise the reference's, plus the 2-tier ``step`` on the
+    ingress boundary."""
+    rng = np.random.default_rng(7 + num_tiers + F + 100 * seed)
+    W = 16
     B = num_tiers - 1
     ref = j_policy.ControlLoop("auto", F, window=W, num_tiers=num_tiers)
     port = t_policy.ControlLoop("auto", F, window=W, num_tiers=num_tiers)
@@ -85,11 +91,88 @@ def test_control_loop_trajectories_match_reference(num_tiers, F):
                               arrivals=arrivals)
         got = port.step_tiers(list(lats), list(vals), queue_ages=ages,
                               arrivals=arrivals)
-        np.testing.assert_allclose(got, want, **R_TOL, err_msg=f"step {t}")
-    np.testing.assert_allclose(port.dist(), ref.dist(), **R_TOL)
+        np.testing.assert_array_equal(got, want, err_msg=f"step {t}")
+    np.testing.assert_array_equal(port.dist(), ref.dist())
     lat, val = _windows(rng, F, W, W)
-    np.testing.assert_allclose(port.step(lat, val), ref.step(lat, val),
-                               **R_TOL)
+    np.testing.assert_array_equal(port.step(lat, val), ref.step(lat, val))
+
+
+def _net_policies(mod, spec, links, req_bytes):
+    return [mod.Policy.parse(spec, link_bytes_per_s=bw, req_bytes=req_bytes)
+            for bw in links]
+
+
+@pytest.mark.parametrize("num_tiers,F", [(2, 1), (2, 3), (3, 1), (3, 3)])
+def test_net_aware_trajectories_match_reference(num_tiers, F):
+    """``"auto+net"`` per-boundary caps (each boundary against its own
+    link) bind on a share of the steps; R_t stays bitwise the
+    reference's, and a mid-run ``set_link_capacity`` re-caps both."""
+    rng = np.random.default_rng(11 * num_tiers + F)
+    W, T = 16, 120
+    B = num_tiers - 1
+    links = [50e6, 100e6][:B]
+    ref = j_policy.ControlLoop(
+        "auto+net", F, window=W, num_tiers=num_tiers,
+        boundary_policies=_net_policies(j_policy, "auto+net", links, 6.0e6))
+    port = t_policy.ControlLoop(
+        "auto+net", F, window=W, num_tiers=num_tiers,
+        boundary_policies=_net_policies(t_policy, "auto+net", links, 6.0e6))
+    capped = 0
+    for t in range(T):
+        if t == T // 2:
+            for pol in (ref.policies[0], port.policies[0]):
+                assert pol.set_link_capacity(5e6)
+        lats, vals = zip(*[_windows(rng, F, W, None) for _ in range(B)])
+        ages = [[sorted(rng.uniform(0, 1, int(rng.integers(0, 6))).tolist())
+                 for _ in range(F)] for _ in range(B)]
+        arrivals = [rng.integers(0, 40, F) for _ in range(B)]
+        want = ref.step_tiers(list(lats), list(vals), queue_ages=ages,
+                              arrivals=arrivals)
+        got = port.step_tiers(list(lats), list(vals), queue_ages=ages,
+                              arrivals=arrivals)
+        np.testing.assert_array_equal(got, want, err_msg=f"step {t}")
+        caps = np.stack([np.clip(100.0 * pol.cfg.link_bytes_per_s
+                                 / np.maximum(np.maximum(a, 1e-3) * 6.0e6,
+                                              1e-9), 0, 100)
+                         for pol, a in zip(port.policies, arrivals)])
+        capped += int(np.sum(np.isclose(got, caps, rtol=1e-5) & (caps < 100)))
+    assert capped > 10                   # the cap bound on many rows
+    assert port.policies[0].cfg == dataclasses.replace(
+        port.policies[0].cfg, link_bytes_per_s=5e6)
+    assert not t_policy.AutoOffload().set_link_capacity(1e6)
+
+
+def test_offload_update_rows_match_reference_kernel():
+    """One step of the port's ``offload_update`` against the reference's
+    jitted rows kernel on random states (ring heads, fill levels, R) at
+    several row counts: Eqs (1)-(4) and the cap, bitwise."""
+    rng = np.random.default_rng(3)
+    cfg_j = j_offload.OffloadConfig()
+    cfg_t = t_offload.OffloadConfig(net_aware=True, link_bytes_per_s=50e6,
+                                    req_bytes=6.0e6)
+    for P in (1, 2, 8, 16):
+        for _ in range(25):
+            ratios = (1 + 3 * rng.random((P, 11))).astype(np.float32)
+            head = rng.integers(0, 11, P).astype(np.int32)
+            filled = rng.integers(0, 12, P).astype(np.int32)
+            R = (100 * rng.random(P)).astype(np.float32)
+            R[0] = 1.5e-38                # R * c_in is subnormal: flushed
+            lat = rng.lognormal(0, 1, (P, 64)).astype(np.float32)
+            val = rng.random((P, 64)) < rng.random((P, 1))
+            rps = rng.integers(0, 40, P).astype(np.float32) + 1e-3
+            st_j = j_offload.OffloadState(*map(np.asarray,
+                                               (ratios, head, filled, R)))
+            _, want = j_offload.offload_update_rows_jit(
+                st_j, lat, val, np.ones(P, bool),
+                np.full(P, np.float32(100.0 * 50e6)),
+                np.full(P, np.float32(6.0e6)), np.ones(P, bool), rps,
+                cfg=cfg_j)
+            st_t = t_offload.OffloadState(*map(torch.from_numpy,
+                                               (ratios, head, filled, R)))
+            _, got = t_offload.offload_update(
+                st_t, torch.from_numpy(lat), torch.from_numpy(val), cfg_t,
+                demand_rps=torch.from_numpy(rps))
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_static_split_loop_matches_reference():
@@ -183,12 +266,32 @@ def test_policy_parse_supported(spec):
     np.testing.assert_array_equal(port.initial_R(3), ref.initial_R(3))
 
 
-@pytest.mark.parametrize("spec", ["auto+net", "auto+hedge", "auto+migrate",
-                                  "auto+net+hedge", "auto+migrate+net"])
+@pytest.mark.parametrize("spec", ["auto+net", "auto+migrate",
+                                  "auto+migrate+net", "AUTO+NET",
+                                  "auto+net+migrate"])
+def test_policy_parse_modifiers_match_reference(spec):
+    kw = dict(link_bytes_per_s=50e6, req_bytes=6.0e6)
+    ref = j_policy.Policy.parse(spec, **kw)
+    port = t_policy.Policy.parse(spec, **kw)
+    assert type(port).__name__ == type(ref).__name__
+    assert port.spec == ref.spec
+    assert port.migrate_threshold == ref.migrate_threshold
+    for f in ("net_aware", "link_bytes_per_s", "req_bytes", "c_decay",
+              "c_t", "c_soft", "c_hard", "c_in"):
+        assert getattr(port.cfg, f) == getattr(ref.cfg, f), f
+    np.testing.assert_array_equal(port.initial_R(3), ref.initial_R(3))
+
+
+@pytest.mark.parametrize("spec", ["auto+hedge", "auto+net+hedge"])
 def test_policy_parse_unported_modifiers_raise(spec):
     j_policy.Policy.parse(spec)                  # valid in the reference
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, open item 3"):
         t_policy.Policy.parse(spec)
+
+
+def test_sketch_front_end_raises():
+    with pytest.raises(NotImplementedError, match="open item 3"):
+        t_policy.ControlLoop("auto", 1, eq1="sketch")
 
 
 @pytest.mark.parametrize("spec", ["bogus", "auto+fast", "101", -1])
