@@ -89,6 +89,27 @@ Phases, each raising on failure (the script then exits non-zero):
    net-aware cap bound on, ``controller_update``'s host time (median and
    p95), tokens/s and one decode step per tier (wall, device time, busy
    share);
+5h. (run after 5f on phase 5's weights, and after 5d on its hymba
+   weights) the live controls: a request migrated mid-stream must give
+   the ids of the same request unmigrated, at every step.  Each case
+   serves one 512-token prompt (32 new tokens) alone, then again beside
+   a keeper (256 tokens, 18 new) on a two-tier edge -> cloud pair of one
+   shape over a 40 ms / 100 MB/s link, where it migrates after 8 decode
+   steps (``max_steps_per_tick=8``, a static split of 50 whose arrivals
+   stay at the edge and whose migrate threshold drops to 50): (a)
+   stablelm dense -> dense, 16 slots, max_len 1024 (K1, K2; the landing
+   crosses a tick); (b) stablelm paged -> paged, page 16, 8 slots in 128
+   pages (K1, K3; the row ships its filled pages only); (c) hymba dense
+   -> dense, 16 slots, max_len 2048 (K1, K5, K2; window KV, global KV and
+   SSM state).  Fails unless the ids agree at every step, one migration
+   completed and the link carried the row's cache bytes + 4 B a token.
+   (d) phase 5f's chain with the edge and the cloud paged under
+   ``"auto+net+hedge+migrate"`` with ``max_steps_per_tick=4``, 5f's
+   trace, a brownout of link 0 and an edge outage while it holds
+   residents, hedges seeded by short ingress latencies: fails unless
+   served + failed == submitted, the hedge and migration identities
+   hold after every tick, faults applied >= 2, replayed >= 1, and K1, K2
+   and K3 launched.  The ``kernels`` rows carry ``launches_5h``;
 5g. the paper's four FaaS bodies (matmult n=256, image_proc 128,
    random_io 2^16, mixed 128) on the card, each against its CPU run on
    the same drawn tensors (1e-4 abs / 1e-4 rel), timed with CUDA events;
@@ -1434,6 +1455,324 @@ def sim_sweep() -> None:
         f"({time.perf_counter() - t0:.1f}s on the host)")
 
 
+# ---------------------------------------------------------------- phase 5h
+
+# the keeper has 9 tokens left when the row migrates (the longest-running
+# of the two goes: ceil(2 x 50 %) = 1) and 1 a tick later, too few to
+# migrate itself (``migrate_min_remaining`` = 2)
+MIG_MAX_NEW, MIG_KEEP_NEW, MIG_STEPS = 32, 18, 8
+MIG_LINK = (0.04, 100e6)            # Topology.device_edge_cloud's 2nd link
+
+
+def _migration_topology(slots: int, max_len: int, paged: dict):
+    """Two tiers of one shape (the same slots, ``max_len`` and page
+    layout) over the 40 ms / 100 MB/s link: a row decodes at the same
+    batch on both sides, so K2/K3 split it alike and cuBLAS picks the same
+    GEMMs, and the migrated stream can be held bitwise."""
+    from repro_torch.platform import LinkSpec, TierSpec, Topology
+    return Topology(
+        (TierSpec("edge", slots=slots, max_len=max_len, **paged),
+         TierSpec("cloud", slots=slots, max_len=max_len, **paged)),
+        (LinkSpec(rtt_s=MIG_LINK[0], bandwidth_Bps=MIG_LINK[1]),),
+        waterfall=False)
+
+
+def _migration_run(tag, cfg, params, topo, prompts, migrate: bool):
+    """Serve ``prompts`` (rid -> (tokens, max_new)) on ``topo``'s edge:
+    every arrival stays at the ingress while R_t = 50, one tick of
+    ``MIG_STEPS`` decode steps, then (``migrate``) the threshold drops to
+    50 and the tier ships its longest-running row over the link.  Ticks
+    to the end, holding the migration identity after every tick.
+    Returns the requests, the continuum and what the row transfer did."""
+    import torch
+    from repro_torch.platform import (Continuum, FunctionSpec, Request,
+                                      StaticSplit)
+
+    class HoldThenMigrate(StaticSplit):
+        def __init__(self):
+            super().__init__(50.0)
+            self.migrate_threshold = None
+
+        def tier_distribution(self, R_all, num_tiers):
+            d = super().tier_distribution(R_all, num_tiers)
+            d[:] = 0.0
+            d[:, 0] = 100.0
+            return d
+
+    pol = HoldThenMigrate()
+    cc = Continuum.from_topology(topo, policy=pol, seed=0, device="cuda",
+                                 max_steps_per_tick=MIG_STEPS)
+    cc.deploy(FunctionSpec(name=tag, arch=cfg.name), cfg, params)
+    src, dst = (t.endpoints[tag] for t in cc.tiers)
+    moved = {}
+    extract, insert = src.extract_rows, dst.insert_rows
+
+    def timed_extract(slots):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = extract(slots)
+        torch.cuda.synchronize()
+        moved.update(extract_ms=1e3 * (time.perf_counter() - t0),
+                     t_fire=time.perf_counter(), rows=out)
+        return out
+
+    def timed_insert(rows, slots, positions):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        insert(rows, slots, positions)
+        torch.cuda.synchronize()
+        moved.update(insert_ms=1e3 * (time.perf_counter() - t0),
+                     landed_s=time.perf_counter() - moved["t_fire"])
+    src.extract_rows, dst.insert_rows = timed_extract, timed_insert
+
+    reqs = {}
+    for rid, (toks, max_new) in prompts.items():
+        reqs[rid] = Request(rid=rid, tokens=toks, max_new=max_new)
+        if not cc.submit(tag, reqs[rid]):
+            raise RuntimeError(f"5h {tag}: request {rid} rejected")
+    cc.tick()
+    if migrate:
+        pol.migrate_threshold = 50.0        # R_t (50) reaches it now
+    for _ in range(64):
+        rec = cc.tick()
+        c = cc.metrics.counter
+        if c("migrations_fired") != (c("migrations_completed")
+                                     + c("migrations_aborted")
+                                     + cc.migrations_open):
+            raise RuntimeError(f"5h {tag}: migration identity broken at "
+                               f"tick {len(cc.log)}: {rec}")
+        if cc.queued == 0 and cc.in_flight == 0:
+            break
+    else:
+        raise RuntimeError(f"5h {tag}: not drained after 64 ticks")
+    torch.cuda.synchronize()
+    return reqs, cc, moved
+
+
+def migration_case(tag, label, cfg, params, slots, max_len, paged, card,
+                   kernels, cross_tick=True) -> dict:
+    """One bitwise case of phase 5h: a ``MIG_MAX_NEW``-token request on a
+    512-token prompt served alone and unmigrated, then the same request
+    beside a shorter keeper (256-token prompt, ``MIG_KEEP_NEW`` tokens,
+    which keeps the source decoding to the step cap, so the transfer
+    lands a tick later),
+    migrated after ``MIG_STEPS`` decode steps.  Fails unless the ids are
+    equal at every step, exactly one migration completed (landing on a
+    later tick than it fired, with ``cross_tick``), ``link_bytes`` grew
+    by the row's live cache bytes + 4 B a token (whole pages when paged),
+    and ``kernels`` launched and nothing else did."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    topo = _migration_topology(slots, max_len, paged)
+    rng = np.random.default_rng(21)
+    main = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+    keeper = rng.integers(0, cfg.vocab_size, 256).astype(np.int32)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo, _, _ = _migration_run(tag, cfg, params, topo,
+                                {0: (main, MIG_MAX_NEW)}, migrate=False)
+    reqs, cc, moved = _migration_run(
+        tag, cfg, params, topo,
+        {0: (main, MIG_MAX_NEW), 1: (keeper, MIG_KEEP_NEW)}, migrate=True)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+
+    want, got = solo[0].output, reqs[0].output
+    same = int((got == want).sum()) if got is not None else 0
+    c = cc.metrics.counter
+    if (got is None or got.shape != (MIG_MAX_NEW,)
+            or not np.array_equal(got, want)):
+        raise RuntimeError(f"5h {label}: migrated ids {got} != unmigrated "
+                           f"{want} ({same}/{MIG_MAX_NEW} equal)")
+    if (c("migrations_completed"), c("migrations_aborted")) != (1, 0):
+        raise RuntimeError(f"5h {label}: {dict(cc.metrics.counters)}")
+    if reqs[1].output is None or reqs[1].output.shape != (MIG_KEEP_NEW,):
+        raise RuntimeError(f"5h {label}: keeper {reqs[1].output}")
+    fired = [i for i, r in enumerate(cc.log) if r["migrations_fired"]]
+    landed = [i for i, r in enumerate(cc.log) if r["migrated"]]
+    if fired != [1] or not landed or (cross_tick and landed[0] <= 1):
+        raise RuntimeError(f"5h {label}: fired at ticks {fired}, landed "
+                           f"at {landed}: the landing did not cross a tick")
+    ep = cc.tiers[0].endpoints[tag]
+    pos = 512 + MIG_STEPS
+    tail = 4.0 * (512 + 1 + MIG_STEPS)
+    cache = ep.cache_nbytes_per_row(pos)
+    if cc.link_bytes[0] != cache + tail:
+        raise RuntimeError(f"5h {label}: link_bytes {cc.link_bytes[0]} != "
+                           f"{cache} + {tail}")
+    [row] = moved["rows"]
+    if paged:
+        page = ep.page_size
+        if (row.n_pages != -(-pos // page) or row.nbytes != cache
+                or cache != ep.cache_nbytes_per_row(row.n_pages * page)):
+            raise RuntimeError(f"5h {label}: shipped {row.n_pages} pages, "
+                               f"{row.nbytes} B for position {pos}")
+        shipped = f"{row.n_pages} pages of {page}"
+    else:
+        shipped = (f"{sum(l.numel() * l.element_size() for l in row.values())}"
+                   f" B of cloned leaves ({', '.join(sorted(row))})")
+    if min(launches[k] for k in kernels) <= 0 or any(
+            n for k, n in launches.items() if k not in kernels):
+        raise RuntimeError(f"5h {label}: launches {launches}")
+    transfer = cc.topology.links[0].latency_s(cache + tail)
+    log(f"[5h] ({label}) ids equal at all {MIG_MAX_NEW} steps "
+        f"({same}/{MIG_MAX_NEW}); row at position {pos}: {cache:.0f} B "
+        f"cache + {tail:.0f} B tokens = {cache + tail:.0f} B on link 0 "
+        f"({shipped}); link time {transfer:.4f} s (40 ms + bytes / 100 "
+        f"MB/s), fired tick {fired[0]} landed tick {landed[0]} after "
+        f"{moved['landed_s']:.4f} s wall; extract_rows "
+        f"{moved['extract_ms']:.3f} ms, insert_rows "
+        f"{moved['insert_ms']:.3f} ms (host clock around a synchronize); "
+        f"phase wall {wall:.2f} s; launches {launches} ({card})")
+    return launches
+
+
+def live_controls(cfg, params, card: str) -> dict:
+    """Phase 5h (d): phase 5f's chain with the edge and the cloud paged,
+    under ``"auto+net+hedge+migrate"``, step-capped ticks, 5f's bursty
+    trace, a brownout of link 0 (``faults=``) and an edge outage applied
+    through ``apply_fault`` at the first tick from 8 on where the edge
+    holds residents, lifted three ticks later.  Short latencies recorded
+    at the ingress before the burst seed hedges.  Fails unless served +
+    failed == submitted, both accounting identities hold after every
+    tick, at least two faults applied and one request replayed, and K1,
+    K2 and K3 launched (and nothing else)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.platform import (AutoscalingPolicy, Continuum,
+                                      FunctionSpec, TierSpec, Topology,
+                                      edge_brownout, merge_schedules,
+                                      tier_outage)
+    max_len = 1024
+    base = _chain_topology(max_len)
+    topo = Topology((base.tiers[0], base.tiers[1],
+                     TierSpec("cloud", slots=16, max_len=max_len,
+                              page_size=16, queue_depth_per_slot=None)),
+                    base.links, waterfall=True)
+    trace = _chain_trace(cfg.vocab_size)
+    brownout = edge_brownout(4.0, 20.0, link=0)
+    cc = Continuum.from_topology(topo, policy="auto+net+hedge+migrate",
+                                 req_bytes=CHAIN_REQ_BYTES, trace=trace,
+                                 trace_vocab=cfg.vocab_size, seed=0,
+                                 device="cuda", max_steps_per_tick=4,
+                                 faults=brownout)
+    cc.deploy(FunctionSpec(name="stablelm", arch="stablelm-1.6b",
+                           autoscaling=AutoscalingPolicy()), cfg, params)
+    gates = [cc.tiers[b].endpoints["stablelm"].compatible_with(
+        cc.tiers[b + 1].endpoints["stablelm"]) for b in range(2)]
+    if gates != [False, True]:
+        raise RuntimeError(f"5h chain: compatibility gates {gates}")
+    outage, crashed_with = None, 0
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tick = 0
+    while True:
+        if tick == 7:
+            # a window of short samples at the ingress: its p99 drops
+            # below the age of every request left waiting a tick
+            for _ in range(cc.window):
+                cc.edge.metrics.record_latency("stablelm", 0.001)
+        if outage is None and tick >= 8 and cc.tiers[1].inflight_count(
+                "stablelm") > 0:
+            crashed_with = cc.tiers[1].inflight_count("stablelm")
+            outage = tier_outage(cc._clock, cc._clock + 3.0, tier=1)
+        if outage is not None:
+            for ev in outage.due(cc._clock):
+                cc.apply_fault(ev)
+        done = tick >= int(math.ceil(trace.duration_s))
+        if done and cc.queued == 0 and cc.in_flight == 0 and (
+                outage is None or outage.exhausted):
+            break
+        rec = cc.tick()
+        tick += 1
+        c = cc.metrics.counter
+        if cc.hedges_open < 0 or c("migrations_fired") != (
+                c("migrations_completed") + c("migrations_aborted")
+                + cc.migrations_open):
+            raise RuntimeError(f"5h chain: an accounting identity broke at "
+                               f"tick {tick}: {dict(cc.metrics.counters)}")
+        log(f"[5h] chain tick={tick - 1} served={rec['tiers']} "
+            f"hedged={rec['hedged']} won={rec['hedges_won']} "
+            f"cancelled={rec['hedges_cancelled']} "
+            f"migrations_fired={rec['migrations_fired']} "
+            f"migrated={rec['migrated']} aborted={rec['migrations_aborted']} "
+            f"inflight={rec['inflight']} backlog={rec['backlog']} "
+            f"rejected={rec['rejected']} tier_up={cc.tier_up} "
+            f"R_t={rec['R']:.2f}")
+        if tick > 200:
+            raise RuntimeError("5h chain: not drained after 200 ticks")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+
+    reqs = cc.trace_requests
+    c = cc.metrics.counter
+    served = {t.name: sum(r["tiers"][t.name] for r in cc.log)
+              for t in cc.tiers}
+    failed = sum(r.failed for r in reqs)
+    if len(reqs) != len(trace) or sum(served.values()) + failed != len(reqs):
+        raise RuntimeError(f"5h chain: served {served} + failed {failed} "
+                           f"!= submitted {len(reqs)}")
+    for r in reqs:
+        if not r.failed and (r.output is None or r.output.shape != (32,)):
+            raise RuntimeError(f"5h chain: request {r.rid} {r.output}")
+    if cc.hedges_open or cc.migrations_open:
+        raise RuntimeError(f"5h chain: open after drain: "
+                           f"{dict(cc.metrics.counters)}")
+    if c("faults_applied") < 2 or c("replayed") < 1:
+        raise RuntimeError(f"5h chain: faults {dict(cc.metrics.counters)}")
+    need = ("flash_attention", "decode_attention", "paged_decode_attention")
+    if min(launches[k] for k in need) <= 0 or any(
+            n for k, n in launches.items() if k not in need):
+        raise RuntimeError(f"5h chain: launches {launches}")
+    script = merge_schedules(brownout, outage)
+    log(f"[5h] (d) chain: submitted {len(reqs)} served {served} failed "
+        f"{failed}; faults {script} ({int(c('faults_applied'))} applied; "
+        f"the edge crashed holding {crashed_with} residents, "
+        f"{int(c('replayed'))} replayed); hedges fired "
+        f"{int(c('hedges_fired'))} won {int(c('hedges_won'))} cancelled "
+        f"{int(c('hedges_cancelled'))}; migrations fired "
+        f"{int(c('migrations_fired'))} completed "
+        f"{int(c('migrations_completed'))} aborted "
+        f"{int(c('migrations_aborted'))} (R_t follows wall-clock "
+        f"latencies, so these counts move between runs); link MB "
+        f"{[round(b / 1e6, 4) for b in cc.link_bytes]}; {len(cc.log)} "
+        f"ticks, phase wall {wall:.2f} s; launches {launches} ({card})")
+    return launches
+
+
+def migration_hymba(cfg, params, card: str) -> dict:
+    """Phase 5h (c) on phase 5d's hymba weights: the row carries the
+    global layers' KV, the window layers' KV and the SSM h/conv state;
+    prefill through K1 and K5, decode through K2.  Its transfer (about
+    half a stablelm row's) may land within the tick that fired it."""
+    return migration_case("hymba", "c: dense -> dense, hymba", cfg, params,
+                          16, RECURRENT_MAX_LEN, {}, card,
+                          ("flash_attention", "decode_attention",
+                           "ssd_scan"), cross_tick=False)
+
+
+def migration_phase(cfg, params, card: str) -> dict:
+    """Phase 5h on phase 5's stablelm weights: cases (a), (b) and (d)."""
+    total: dict = {}
+    for part in (
+            migration_case("stablelm", "a: dense -> dense, stablelm", cfg,
+                           params, 16, 1024, {}, card,
+                           ("flash_attention", "decode_attention")),
+            migration_case("stablelm", "b: paged -> paged, stablelm", cfg,
+                           params, 8, 1024,
+                           dict(page_size=16, pool_pages=128), card,
+                           ("flash_attention", "paged_decode_attention")),
+            live_controls(cfg, params, card)):
+        for k, n in part.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def serve_hymba(cfg, params, shapes: dict, card: str) -> dict:
     """Phase 5d: the hymba main path; its K2 must read both cache widths
     (the 1024-wide rolling window and the 2048-wide global layers)."""
@@ -2220,6 +2559,7 @@ def main() -> int:
                      if k.startswith("paged_")})
     shapes["K3"] = paged_shapes["K3"]
     chain_launches = serve_chain(cfg, params, {}, card)
+    mig_launches = migration_phase(cfg, params, card)
     faas_bodies(card)
     sim_sweep()
     del params
@@ -2227,6 +2567,8 @@ def main() -> int:
     hcfg, hparams = full_model("hymba-1.5b")
     hy_shapes: dict = {}
     hy_launches = serve_hymba(hcfg, hparams, hy_shapes, card)
+    for k, n in migration_hymba(hcfg, hparams, card).items():
+        mig_launches[k] = mig_launches.get(k, 0) + n
     del hparams
     torch.cuda.empty_cache()
     rcfg, rparams = full_model("rwkv6-7b")
@@ -2241,6 +2583,7 @@ def main() -> int:
         if row["name"] in ("flash_attention", "decode_attention",
                            "paged_decode_attention"):
             row["launches_5f"] = chain_launches[row["name"]]
+        row["launches_5h"] = mig_launches.get(row["name"], 0)
     log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")
     log(f"[time-rwkv6] {json.dumps({'k4_rwkv6': rw_rows})}")
     log(f"[time-more] {json.dumps({'buckets_and_edge': more})}")

@@ -3,15 +3,15 @@
 The port's counterpart of ``repro/core/policy.py``:
 
   * :class:`Policy` — the protocol every traffic policy implements
-    (``init_state / observe / update / route``), plus :meth:`Policy.parse`
-    for the reference's shorthands: ``0``..``100`` (a static split),
-    ``"auto"`` (the paper's Eqs (1)-(4)) and its ``+net`` / ``+migrate``
-    modifiers in any combination.  ``+hedge`` raises
-    ``NotImplementedError`` until hedging is ported (ROADMAP.md item 3).
+    (``init_state / observe / update / route / hedge``), plus
+    :meth:`Policy.parse` for the reference's shorthands: ``0``..``100``
+    (a static split), ``"auto"`` (the paper's Eqs (1)-(4)) and its
+    ``+net`` / ``+hedge`` / ``+migrate`` modifiers in any combination.
   * :class:`StaticSplit`, :class:`AutoOffload`, :class:`NetAwareOffload`
-    (the link-capacity cap), :class:`MigratingOffload` (a policy object
-    with a migration threshold; the simulator migrates, the live runtime
-    refuses it until live migration is ported).
+    (the link-capacity cap), :class:`HedgedOffload` (p99 straggler
+    backups through :func:`repro_torch.core.router.hedged_mask`),
+    :class:`MigratingOffload` (a migration threshold: the live scheduler
+    ships slot-resident rows down-chain once R_t reaches it).
   * :class:`ControlLoop` — one scrape-and-update cycle: latency windows,
     in-flight queue-age mixing, demand RPS, policy update; one controller
     boundary per adjacent tier pair.  The port keeps the reference's
@@ -20,11 +20,13 @@ The port's counterpart of ``repro/core/policy.py``:
 
 Routing draws its uniforms from an explicit ``np.random.Generator`` that
 the caller owns, and hands them to :mod:`repro_torch.core.router`.
+Hedging draws nothing (its rule is deterministic).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -47,6 +49,9 @@ class Policy:
     spec: str = "policy"
     #: mid-stream migration threshold (percent of R_t); None = never
     migrate_threshold: Optional[float] = None
+    #: a row is a migration victim only with at least this many tokens
+    #: still to generate (nearly-done rows finish in place)
+    migrate_min_remaining: int = 2
 
     def init_state(self, num_functions: int) -> Any:
         return None
@@ -103,6 +108,12 @@ class Policy:
                                    torch.from_numpy(noise))
         return tiers.numpy()
 
+    def hedge(self, ages_s: np.ndarray, fn_ids: np.ndarray,
+              latencies: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        """Which waiting requests deserve a backup on another tier ->
+        (B,) bool.  None, unless the policy hedges."""
+        return np.zeros(len(fn_ids), bool)
+
     @staticmethod
     def parse(spec: PolicySpec,
               offload_cfg: Optional[offload.OffloadConfig] = None,
@@ -111,11 +122,12 @@ class Policy:
         """The reference's grammar: ``0``..``100`` (number or numeric
         string) -> StaticSplit; ``"auto"`` -> AutoOffload, optionally with
         the modifiers ``+net`` (NetAwareOffload, capped against
-        ``link_bytes_per_s`` and ``req_bytes``) and ``+migrate`` (a
-        migration threshold) in any order, the canonical ``spec``
-        re-normalized to net, hedge, migrate order.  Policy instances pass
-        through.  ``+hedge`` raises ``NotImplementedError``; anything else
-        ``ValueError``."""
+        ``link_bytes_per_s`` and ``req_bytes``), ``+hedge``
+        (HedgedOffload, over the net-aware config when both are given) and
+        ``+migrate`` (a migration threshold on whichever class hosts the
+        rest) in any order, the canonical ``spec`` re-normalized to net,
+        hedge, migrate order.  Policy instances pass through; anything
+        else raises ``ValueError``."""
         if isinstance(spec, Policy):
             return spec
         cfg = offload_cfg or offload.OffloadConfig()
@@ -130,14 +142,14 @@ class Policy:
             parts = s.split("+")
             mods = set(parts[1:])
             if parts[0] == "auto" and mods <= {"net", "hedge", "migrate"}:
-                if "hedge" in mods:
-                    raise NotImplementedError(
-                        f"policy {spec!r}: the +hedge modifier is not "
-                        f"ported yet (ROADMAP.md, open item 3, hedging)")
                 if "net" in mods:
-                    pol: AutoOffload = NetAwareOffload(
+                    net = NetAwareOffload(
                         cfg, link_bytes_per_s=link_bytes_per_s,
                         req_bytes=req_bytes)
+                    pol: AutoOffload = (HedgedOffload(net.cfg)
+                                        if "hedge" in mods else net)
+                elif "hedge" in mods:
+                    pol = HedgedOffload(cfg)
                 elif "migrate" in mods:
                     pol = MigratingOffload(cfg)
                 else:
@@ -218,19 +230,55 @@ class NetAwareOffload(AutoOffload):
         super().__init__(dataclasses.replace(cfg, **repl))
 
 
+class HedgedOffload(AutoOffload):
+    """Auto controller + request-level straggler mitigation: a queued
+    request whose age already exceeds its function's p99 gets a backup
+    issued on another tier (:func:`router.hedged_mask`)."""
+
+    spec = "auto+hedge"
+
+    def __init__(self, cfg: Optional[offload.OffloadConfig] = None,
+                 hedge_quantile: float = 0.99):
+        super().__init__(cfg)
+        self.hedge_quantile = float(hedge_quantile)
+
+    def hedge(self, ages_s, fn_ids, latencies, valid):
+        if len(fn_ids) == 0:
+            return np.zeros(0, bool)
+        p = self._tail_estimate(latencies, valid)
+        return router.hedged_mask(
+            torch.as_tensor(np.asarray(ages_s, np.float32)),
+            torch.from_numpy(p),
+            torch.as_tensor(np.asarray(fn_ids, np.int64))).numpy()
+
+    def _tail_estimate(self, latencies, valid) -> np.ndarray:
+        """(F,) per-function tail latency (numpy's percentile, as the
+        reference); +inf where nothing was observed yet (never hedge
+        blind)."""
+        lat = np.where(valid, np.asarray(latencies, np.float32), np.nan)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN rows
+            p = np.nanpercentile(lat, self.hedge_quantile * 100.0, axis=-1)
+        return np.where(np.isfinite(p), p, np.inf).astype(np.float32)
+
+
 class MigratingOffload(AutoOffload):
     """Auto controller + mid-stream migration (``"auto+migrate"``): once
-    a boundary's R_t reaches ``migrate_threshold`` the simulator ships
-    ``ceil(in_service * R_t / 100)`` in-service requests down-chain.  The
-    live runtime refuses it until live migration is ported."""
+    a boundary's R_t reaches ``migrate_threshold`` the live scheduler
+    ships ``ceil(eligible * R_t / 100)`` slot-resident rows (longest
+    remaining decode first, at least ``migrate_min_remaining`` tokens to
+    go) down-chain with their cache state, and the simulator moves the
+    same share of its in-service requests."""
 
     spec = "auto+migrate"
     default_threshold = 50.0
 
     def __init__(self, cfg: Optional[offload.OffloadConfig] = None,
-                 migrate_threshold: float = default_threshold):
+                 migrate_threshold: float = default_threshold,
+                 migrate_min_remaining: int = 2):
         super().__init__(cfg)
         self.migrate_threshold = float(migrate_threshold)
+        self.migrate_min_remaining = int(migrate_min_remaining)
 
 
 class ControlLoop:
@@ -254,12 +302,7 @@ class ControlLoop:
                  eq1: str = "window", sketch=None):
         if num_tiers < 1:
             raise ValueError(f"num_tiers must be >= 1, got {num_tiers}")
-        if eq1 == "sketch" or sketch is not None:
-            raise NotImplementedError(
-                'eq1="sketch": the streaming-sketch Eq-(1) front end is '
-                "not ported yet (ROADMAP.md, open item 3)")
-        if eq1 != "window":
-            raise ValueError(f'eq1 must be "window" or "sketch", got {eq1!r}')
+        self.check_front_end(eq1, sketch)
         self.eq1 = eq1
         self.num_functions = num_functions
         self.window = window
@@ -282,6 +325,19 @@ class ControlLoop:
         self.R_all = np.stack([self.policies[b].initial_R(num_functions)
                                for b in range(self.num_boundaries)])
         self.steps = 0
+
+    @staticmethod
+    def check_front_end(eq1: str, sketch=None) -> None:
+        """The one place that refuses an Eq-(1) front end the port lacks:
+        ``"window"`` (exact sorted-window percentiles) is ported, the
+        streaming sketch (``eq1="sketch"`` or a ``sketch`` spec) is not
+        and raises ``NotImplementedError``; anything else ``ValueError``."""
+        if eq1 == "sketch" or sketch is not None:
+            raise NotImplementedError(
+                'eq1="sketch": the streaming-sketch Eq-(1) front end is '
+                "not ported yet (ROADMAP.md, open item 3b)")
+        if eq1 != "window":
+            raise ValueError(f'eq1 must be "window" or "sketch", got {eq1!r}')
 
     @staticmethod
     def _sample_ages(ages: Sequence[float], window: int) -> List[float]:
@@ -385,3 +441,9 @@ class ControlLoop:
         """Assign a queued batch over all N tiers -> (B,) tier indices."""
         return self.policy.route_tiers(rng, self.dist(), fn_ids,
                                        self.num_functions)
+
+    def hedge(self, ages_s: np.ndarray, fn_ids: np.ndarray,
+              latencies: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        """The ingress boundary's policy decides which queued requests
+        get a backup (no draws)."""
+        return self.policy.hedge(ages_s, fn_ids, latencies, valid)

@@ -5,7 +5,8 @@ The port's counterpart of ``repro/core/router.py``:
   * ``route_batch`` — expectation-matched 2-tier split: per function,
     ``floor(B_f * p_f)`` requests plus a Bernoulli remainder cross;
   * ``route_tiers`` — its N-tier generalization over a per-function tier
-    distribution.
+    distribution;
+  * ``hedged_mask`` — which waiting requests get a straggler backup.
 
 The functions take their uniform draws as arguments (``extra_u`` for the
 per-function Bernoulli remainders, ``noise`` for the within-function
@@ -86,3 +87,13 @@ def route_tiers(dist: torch.Tensor, fn_ids: torch.Tensor,
     n = torch.cummin(n, dim=1).values
     rank = _rank_within_function(fn_ids, torch.as_tensor(noise))
     return (rank[:, None] < n[fn_ids, 1:]).sum(dim=1).to(torch.int32)
+
+
+def hedged_mask(ages: torch.Tensor, p99: torch.Tensor,
+                fn_ids: torch.Tensor) -> torch.Tensor:
+    """Mark the waiting requests whose age already exceeds their
+    function's tail estimate for duplication on another tier (a hedged,
+    or backup, request).  ages: (B,) seconds; p99: (F,); fn_ids: (B,).
+    Returns (B,) bool, True = issue a hedge.  Deterministic: it draws
+    nothing."""
+    return ages > p99[torch.as_tensor(fn_ids, dtype=torch.int64)]

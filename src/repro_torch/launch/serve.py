@@ -11,12 +11,17 @@ full-width configuration instead of the smoke one (weights are random,
 drawn from ``--seed`` on the device).  ``--device-slots N`` puts an
 on-device ingress tier in front of the edge (a 3-tier device -> edge ->
 cloud chain, waterfall on); ``--net-aware`` is ``--policy auto+net``.
+``--scheduler wave`` serves with the run-to-completion wave drain;
+``--max-steps-per-tick N`` lets long requests stay slot-resident across
+ticks, which is what gives ``+migrate`` rows to move.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full --rounds 20
     PYTHONPATH=src python -m repro_torch.launch.serve --device-slots 2 \
         --net-aware
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --rounds 6 --policy auto
+    PYTHONPATH=src python -m repro_torch.launch.serve --policy \\
+        auto+migrate --max-steps-per-tick 4
 """
 
 from __future__ import annotations
@@ -48,9 +53,19 @@ def main():
                          "the edge (3-tier device/edge/cloud chain)")
     ap.add_argument("--max-new", type=int, default=4)
     ap.add_argument("--policy", default="auto",
-                    help="traffic policy: 0..100 | auto | auto+net")
+                    help="traffic policy: 0..100 | auto | auto+net | "
+                         "auto+hedge | auto+migrate (modifiers compose, "
+                         "e.g. auto+net+migrate)")
     ap.add_argument("--net-aware", action="store_true",
                     help="shorthand for --policy auto+net")
+    ap.add_argument("--scheduler", default="continuous",
+                    choices=("continuous", "wave"),
+                    help="continuous-batching decode loop (default) or the "
+                         "run-to-completion wave drain")
+    ap.add_argument("--max-steps-per-tick", type=int, default=0,
+                    help="> 0 caps decode steps per tick so long requests "
+                         "stay slot-resident across ticks (continuous "
+                         "scheduler only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -65,6 +80,10 @@ def main():
     params = model_zoo.init(cfg, gen)
 
     policy = "auto+net" if args.net_aware else args.policy
+    sched_kw = dict(scheduler=args.scheduler,
+                    max_steps_per_tick=(args.max_steps_per_tick
+                                        if args.max_steps_per_tick > 0
+                                        else None))
     if args.device_slots > 0:
         topo = Topology(
             tiers=(TierSpec("device", slots=args.device_slots, max_len=64),
@@ -76,14 +95,14 @@ def main():
                    LinkSpec(rtt_s=0.04, bandwidth_Bps=100e6)))
         cc = Continuum.from_topology(
             topo, policy=policy, offload_cfg=OffloadConfig(),
-            seed=args.seed, device=device)
+            seed=args.seed, device=device, **sched_kw)
     else:
         cc = Continuum(
             edge=TierConfig(slots=args.edge_slots, max_len=64),
             cloud=TierConfig(slots=args.cloud_slots, max_len=64,
                              extra_latency_s=0.02),
             policy=policy, offload_cfg=OffloadConfig(), seed=args.seed,
-            device=device)
+            device=device, **sched_kw)
     spec = FunctionSpec(name=args.arch, arch=args.arch, revision=1,
                         autoscaling=AutoscalingPolicy())
     cc.deploy(spec, cfg, params)
@@ -103,22 +122,33 @@ def main():
         rec = cc.tick()
         per_tier = " ".join(f"{nm}={rec['tiers'][nm]:3d}" for nm in names)
         backlog = sum(rec["backlog"].values())
+        mig = (f" migrated={rec['migrated']:2d}"
+               if rec["migrations_fired"] or rec["migrated"] else "")
         print(f"round={rnd:3d} rps={rps:5.1f} queued={n:3d} {per_tier} "
-              f"steps={rec['steps']:3d} backlog={backlog:3d} "
-              f"R_t={rec['R']:5.1f}%")
-    drained = cc.drain()
+              f"steps={rec['steps']:3d} inflight={rec['inflight']:2d} "
+              f"backlog={backlog:3d} R_t={rec['R']:5.1f}%{mig}")
+    drained = cc.drain()           # finish slot-resident stragglers
 
     totals = {nm: sum(r["tiers"][nm] for r in cc.log) for nm in names}
     total = sum(totals.values())
-    steps = sum(r["steps"] for r in cc.log)
+    if args.scheduler == "wave":
+        rate = (f"reqs_per_wave="
+                f"{total / max(sum(r['waves'] for r in cc.log), 1):.1f}")
+    else:
+        rate = (f"tokens_per_decode_step="
+                f"{total * args.max_new / max(sum(r['steps'] for r in cc.log), 1):.1f}")
+    c = cc.metrics.counter
     print(f"\nserved {' '.join(f'{nm}={n}' for nm, n in totals.items())} "
           f"offload_frac={(total - totals[names[0]]) / max(total, 1):.2f} "
-          f"tokens_per_decode_step="
-          f"{total * args.max_new / max(steps, 1):.1f} "
-          f"drain_ticks={drained} "
+          f"{rate} drain_ticks={drained} "
           f"spilled={sum(r['spilled'] for r in cc.log)} "
           f"rejected={sum(r['rejected'] for r in cc.log)} "
-          f"device={device}")
+          f"migrated={int(c('migrations_completed'))} "
+          f"migrations_aborted={int(c('migrations_aborted'))} "
+          f"hedged={int(c('hedges_fired'))} "
+          f"hedges_won={int(c('hedges_won'))} "
+          f"hedges_cancelled={int(c('hedges_cancelled'))} "
+          f"hedges_open={cc.hedges_open} device={device}")
 
 
 if __name__ == "__main__":

@@ -24,13 +24,21 @@ The counterpart of ``repro/platform.py``, for both deployments::
                               faults=edge_brownout(30.0, 60.0))
     table = Continuum.sweep("matmult", policies=(0.0, 50.0, "auto"))
 
+    # live controls: hedging, mid-stream migration, live faults, caps
+    cc = Continuum.from_topology(Topology.device_edge_cloud(),
+                                 policy="auto+net+hedge+migrate",
+                                 max_steps_per_tick=4,
+                                 faults=tier_outage(10.0, 14.0, tier=1))
+
 A tier of the chain may hold a paged KV pool with prefix sharing
 (``TierSpec(page_size=16, pool_pages=...)``).  Policy shorthands: a
 number in [0, 100] (static split), ``"auto"`` (the paper's Eqs (1)-(4)),
-``"auto+net"`` (the link-capacity cap) and ``"auto+migrate"`` (simulator
-only).  Hedging, live migration, live faults and the sketch front end
-raise (ROADMAP.md, open item 3).  The simulator is numpy on the host and
-runs anywhere; the live runtime defaults to the card.
+and its modifiers in any combination: ``+net`` (the link-capacity cap),
+``+hedge`` (p99 straggler backups), ``+migrate`` (mid-stream migration of
+slot-resident rows with their cache state).  ``scheduler="wave"`` keeps
+the run-to-completion wave drain as the baseline.  The sketch Eq-(1)
+front end raises (ROADMAP.md, open item 3b).  The simulator is numpy on
+the host and runs anywhere; the live runtime defaults to the card.
 """
 
 from __future__ import annotations
@@ -39,8 +47,9 @@ from typing import Dict, Optional, Sequence
 
 from repro_torch.core.offload import OffloadConfig
 from repro_torch.core.policy import (AutoOffload, ControlLoop,
-                                     MigratingOffload, NetAwareOffload,
-                                     Policy, PolicySpec, StaticSplit)
+                                     HedgedOffload, MigratingOffload,
+                                     NetAwareOffload, Policy, PolicySpec,
+                                     StaticSplit)
 from repro_torch.core.replication import AutoscalingPolicy, FunctionSpec
 from repro_torch.core.simulator import (ContinuumSimulator, SimConfig,
                                         SimResult)
@@ -55,7 +64,8 @@ from repro_torch.workloads.trace import Trace
 __all__ = [
     "Continuum", "TierConfig", "TierSpec", "LinkSpec", "Topology",
     "Gateway", "SimConfig", "SimResult", "Request", "Policy",
-    "StaticSplit", "AutoOffload", "NetAwareOffload", "MigratingOffload",
+    "StaticSplit", "AutoOffload", "NetAwareOffload", "HedgedOffload",
+    "MigratingOffload",
     "ControlLoop", "OffloadConfig", "AutoscalingPolicy", "FunctionSpec",
     "Trace", "FaultEvent", "FaultSchedule",
     "edge_brownout", "cloud_partition", "tier_outage", "merge_schedules",
@@ -74,9 +84,11 @@ class Continuum(EdgeCloudContinuum):
         return cls(policy=policy, topology=topology, **kwargs)
 
     def drain(self, max_ticks: int = 1000) -> int:
-        """Tick until every gateway backlog and in-flight slot is empty.
-        Returns the number of ticks it took; raises if ``max_ticks`` is
-        not enough."""
+        """Tick until every gateway backlog, in-flight slot and migration
+        still crossing a link is empty (``in_flight`` counts transits; a
+        ``max_steps_per_tick``-paced run leaves long requests resident
+        across ticks).  Returns the number of ticks it took; raises if
+        ``max_ticks`` is not enough."""
         for n in range(max_ticks):
             if self.queued == 0 and self.in_flight == 0:
                 return n

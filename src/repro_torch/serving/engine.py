@@ -435,11 +435,24 @@ class Endpoint:
         return True
 
     # -- row state ---------------------------------------------------------
+    def compatible_with(self, other: "Endpoint") -> bool:
+        """Row states move between two endpoints iff they serve the same
+        model (the same config object) at the same context budget with the
+        same pool layout, on the same device: every shipped leaf then has
+        the same non-slot dimensions.  Pool sizes may differ."""
+        return (other.cfg is self.cfg and other.max_len == self.max_len
+                and other.paged == self.paged
+                and (not self.paged or other.page_size == self.page_size)
+                and other.device == self.device)
+
     def extract_rows(self, slots: List[int]) -> list:
         """Copy the given slots' cache state out of the pool, the unit a
         migration ships to a peer endpoint.  Dense: one dict per slot, each
-        leaf with the slot axis narrowed to 1.  Paged: a :class:`PagedRow`
-        with only the pages covering the row's filled positions."""
+        leaf with the slot axis narrowed to 1, cloned on the pool's device
+        (stablelm-1.6b at ``max_len`` 1024 holds 24 layers x k/v x 1024
+        positions x 2048 x 2 B, about 201 MB a row).  Paged: a
+        :class:`PagedRow` with only the pages covering the row's filled
+        positions."""
         if not self.paged:
             return [{name: leaf[:, s:s + 1].clone()
                      for name, leaf in self.cache.items()} for s in slots]

@@ -5,8 +5,8 @@ The port's copy of ``repro/workloads/faults.py``.  A
 over a :class:`~repro_torch.core.topology.Topology` — link degradation
 (bandwidth/RTT multipliers), link partition, tier crash (slots and
 in-flight state lost) and recovery.  The simulator applies it as fault
-events in its heap; the live runtime refuses ``faults=`` until live
-faults are ported (ROADMAP.md, open item 3).
+events in its heap, the live runtime at the top of each tick (and
+through ``EdgeCloudContinuum.apply_fault``).
 
 The frozen :class:`~repro_torch.core.topology.LinkSpec`\\ s are never
 mutated: fault state lives in a mutable :class:`LinkState` overlay per

@@ -284,9 +284,17 @@ def test_policy_parse_modifiers_match_reference(spec):
 
 @pytest.mark.parametrize("spec", ["auto+hedge", "auto+net+hedge"])
 def test_policy_parse_unported_modifiers_raise(spec):
-    j_policy.Policy.parse(spec)                  # valid in the reference
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, open item 3"):
-        t_policy.Policy.parse(spec)
+    """``+hedge`` used to be the modifier left unported; it now parses as
+    the reference does (none raises any more)."""
+    kw = dict(link_bytes_per_s=50e6, req_bytes=6.0e6)
+    ref = j_policy.Policy.parse(spec, **kw)
+    port = t_policy.Policy.parse(spec, **kw)
+    assert type(port).__name__ == type(ref).__name__ == "HedgedOffload"
+    assert port.spec == ref.spec
+    assert port.hedge_quantile == ref.hedge_quantile
+    assert port.migrate_threshold is ref.migrate_threshold is None
+    for f in ("net_aware", "link_bytes_per_s", "req_bytes"):
+        assert getattr(port.cfg, f) == getattr(ref.cfg, f), f
 
 
 def test_sketch_front_end_raises():

@@ -81,7 +81,7 @@ def _pair(workload, policy, kind, dur=300.0, trace=False, faults=None,
 
 @pytest.mark.parametrize("kind", ["pair", "dec"])
 @pytest.mark.parametrize("policy", [0.0, 50.0, "auto", "auto+net",
-                                    "auto+migrate"])
+                                    "auto+migrate", "auto+hedge"])
 def test_sim_result_matches_reference(policy, kind):
     ref, port = _pair("matmult", policy, kind)
     assert_same_result(port, ref)
@@ -188,8 +188,10 @@ def test_sim_replays_the_sim_controller_inputs():
 def test_sim_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         t_sim.ContinuumSimulator("io", "auto", eq1="sketch")
-    with pytest.raises(NotImplementedError):
-        t_sim.ContinuumSimulator("io", "auto+hedge")
+    # hedging is ported: the simulator takes "auto+hedge" as the
+    # reference does (its boundaries run the auto controller)
+    assert type(t_sim.ContinuumSimulator("io", "auto+hedge").control
+                .policy).__name__ == "HedgedOffload"
     with pytest.raises(NotImplementedError):
         t_topo.Topology.device_edge_cloud(cost_model=True)
     with pytest.raises(ValueError):
