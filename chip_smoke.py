@@ -101,8 +101,11 @@ Phases, each raising on failure (the script then exits non-zero):
    crosses a tick); (b) stablelm paged -> paged, page 16, 8 slots in 128
    pages (K1, K3; the row ships its filled pages only); (c) hymba dense
    -> dense, 16 slots, max_len 2048 (K1, K5, K2; window KV, global KV and
-   SSM state).  Fails unless the ids agree at every step, one migration
-   completed and the link carried the row's cache bytes + 4 B a token.
+   SSM state); (e), after 5e on its weights, rwkv6 dense -> dense, 16
+   slots, max_len 2048 (K4 prefill; the row is the WKV state and token
+   shifts, 34,078,720 B at every position).  Fails unless the ids agree
+   at every step, one migration completed and the link carried the
+   row's cache bytes + 4 B a token.
    (d) phase 5f's chain with the edge and the cloud paged under
    ``"auto+net+hedge+migrate"`` with ``max_steps_per_tick=4``, 5f's
    trace, a brownout of link 0 and an edge outage while it holds
@@ -110,6 +113,17 @@ Phases, each raising on failure (the script then exits non-zero):
    served + failed == submitted, the hedge and migration identities
    hold after every tick, faults applied >= 2, replayed >= 1, and K1, K2
    and K3 launched.  The ``kernels`` rows carry ``launches_5h``;
+5i. (run after 5f, on its weights) phase 5f's chain again with
+   ``eq1="sketch"``: the controller reads Eq (1) from decayed log-bucket
+   histograms fed each scrape's fresh samples.  The same checks as 5f
+   (conservation, K1-K3 launched and nothing else, sim R_t == live R_t
+   on every scrape, the recorded ``step_stream`` inputs replayed through
+   the simulator's sketch loop over the chain); prints its served per
+   tier, rejected, final R_t, tokens/s and ``controller_update`` host
+   time beside 5f's (no per-tier decode step: 5f times those), then the
+   sketch tick alone on the host at F = 1024 and 4096 (one boundary,
+   window 64, F samples a tick) beside the window tick.  The K1-K3 rows
+   carry ``launches_5i``;
 5g. the paper's four FaaS bodies (matmult n=256, image_proc 128,
    random_io 2^16, mixed 128) on the card, each against its CPU run on
    the same drawn tensors (1e-4 abs / 1e-4 rel), timed with CUDA events;
@@ -1250,13 +1264,16 @@ def _step_device(ep, prompts: dict, card: str, tag: str, label: str):
     return wall, dev
 
 
-def serve_chain(cfg, params, shapes: dict, card: str) -> dict:
-    """Phase 5f: full-width stablelm-1.6b through a live three-tier
-    device -> edge -> cloud chain (waterfall on) under ``"auto+net"``,
-    arrivals from a bursty trace; conservation, the kernels launched on
-    every tier, the net-aware cap, sim R_t == live R_t on the recorded
-    controller inputs, the controller's host time, tokens/s and one
-    decode step per tier."""
+def serve_chain(cfg, params, shapes: dict, card: str,
+                eq1: str = "window") -> dict:
+    """Phase 5f (``eq1="window"``) or 5i (``"sketch"``): full-width
+    stablelm-1.6b through a live three-tier device -> edge -> cloud chain
+    (waterfall on) under ``"auto+net"``, arrivals from a bursty trace;
+    conservation, the kernels launched on every tier, the net-aware cap,
+    sim R_t == live R_t on the recorded controller inputs (replayed
+    through the simulator's control loop over the same chain), the
+    controller's host time, tokens/s and (5f) one decode step per tier.
+    Returns the launches and the summary 5i prints beside 5f's."""
     import copy
     import numpy as np
     import torch
@@ -1264,33 +1281,34 @@ def serve_chain(cfg, params, shapes: dict, card: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.platform import (AutoscalingPolicy, Continuum,
                                       FunctionSpec)
+    tag = "chain" if eq1 == "window" else "5i"
     max_len, max_new = 1024, 32
     topo = _chain_topology(max_len)
     trace = _chain_trace(cfg.vocab_size)
     cc = Continuum.from_topology(topo, policy="auto+net",
                                  req_bytes=CHAIN_REQ_BYTES, trace=trace,
                                  trace_vocab=cfg.vocab_size, seed=0,
-                                 device="cuda")
+                                 device="cuda", eq1=eq1)
     cc.deploy(FunctionSpec(name="stablelm", arch="stablelm-1.6b",
                            autoscaling=AutoscalingPolicy()), cfg, params)
     per_tick = trace.per_tick(1.0)[:, 0]
-    log(f"[chain] {topo}; trace {len(trace)} requests, arrivals per tick "
-        f"{per_tick.tolist()}; caps parsed per boundary: "
+    log(f"[{tag}] eq1={eq1!r}; {topo}; trace {len(trace)} requests, "
+        f"arrivals per tick {per_tick.tolist()}; caps parsed per boundary: "
         f"{[(p.spec, p.cfg.link_bytes_per_s, p.cfg.req_bytes) for p in cc.control.policies]}")
 
     # record every scrape's controller inputs and outputs, and its host time
     inputs, outputs, upd_ms = [], [], []
-    step_tiers = cc.control.step_tiers
+    step_name = "step_tiers" if eq1 == "window" else "step_stream"
+    step = getattr(cc.control, step_name)
 
-    def recorded(lats, vals, queue_ages=None, arrivals=None):
-        inputs.append(([np.array(l) for l in lats],
-                       [np.array(v) for v in vals],
+    def recorded(first, *args, queue_ages=None, arrivals=None):
+        inputs.append((copy.deepcopy(first), copy.deepcopy(args),
                        copy.deepcopy(queue_ages),
                        [np.array(a) for a in arrivals]))
-        R = step_tiers(lats, vals, queue_ages=queue_ages, arrivals=arrivals)
+        R = step(first, *args, queue_ages=queue_ages, arrivals=arrivals)
         outputs.append(np.array(R))
         return R
-    cc.control.step_tiers = recorded
+    setattr(cc.control, step_name, recorded)
     update = cc.controller_update
 
     def timed_update():
@@ -1307,7 +1325,7 @@ def serve_chain(cfg, params, shapes: dict, card: str) -> dict:
     with recording(shapes, calls):
         for tick in range(int(math.ceil(trace.duration_s))):
             rec = cc.tick()
-            log(f"[chain] tick={tick} arrived={int(per_tick[tick])} "
+            log(f"[{tag}] tick={tick} arrived={int(per_tick[tick])} "
                 f"served={rec['tiers']} spilled={rec['spilled']} "
                 f"rejected={rec['rejected']} backlog={rec['backlog']} "
                 f"R_t={[f'{r:.2f}' for r in outputs[-1][:, 0]]}")
@@ -1322,22 +1340,22 @@ def serve_chain(cfg, params, shapes: dict, card: str) -> dict:
     rejected = sum(r["rejected"] for r in cc.log)
     n_served = sum(served.values())
     if len(reqs) != len(trace) or n_served + rejected != len(reqs):
-        raise RuntimeError(f"chain: served {served} + rejected {rejected} "
+        raise RuntimeError(f"{tag}: served {served} + rejected {rejected} "
                            f"!= submitted {len(reqs)}")
     if sum(r.failed for r in reqs) != rejected:
-        raise RuntimeError("chain: failed requests != rejections")
+        raise RuntimeError(f"{tag}: failed requests != rejections")
     for r in reqs:
         if r.failed:
             continue
         if (r.output is None or r.output.shape != (max_new,)
                 or r.output.min() < 0 or r.output.max() >= cfg.vocab_size):
-            raise RuntimeError(f"chain request {r.rid}: bad output "
+            raise RuntimeError(f"{tag} request {r.rid}: bad output "
                                f"{r.output}")
     need = ("flash_attention", "decode_attention", "paged_decode_attention")
     if min(launches[k] for k in need) <= 0:
-        raise RuntimeError(f"chain skipped a kernel: {launches}")
+        raise RuntimeError(f"{tag} skipped a kernel: {launches}")
     if any(n for k, n in launches.items() if k not in need):
-        raise RuntimeError(f"chain ran a plain version or another kernel: "
+        raise RuntimeError(f"{tag} ran a plain version or another kernel: "
                            f"{launches}")
     link_MB = [sum(r["link_MB"][l] for r in cc.log)
                for l in range(len(topo.links))]
@@ -1347,14 +1365,14 @@ def serve_chain(cfg, params, shapes: dict, card: str) -> dict:
     # parsed against matmult's payload, replays the recorded inputs
     sim = ContinuumSimulator("matmult", "auto+net",
                              SimConfig(window=64, control_interval_s=1.0),
-                             topology=topo).control
+                             topology=topo, eq1=eq1).control
+    sim_step = getattr(sim, step_name)
     capped = 0
-    for i, ((lats, vals, ages, arrivals), R_live) in enumerate(
+    for i, ((first, args, ages, arrivals), R_live) in enumerate(
             zip(inputs, outputs)):
-        R_sim = sim.step_tiers(lats, vals, queue_ages=ages,
-                               arrivals=arrivals)
+        R_sim = sim_step(first, *args, queue_ages=ages, arrivals=arrivals)
         if not np.array_equal(R_sim, R_live):
-            raise RuntimeError(f"chain: sim R_t {R_sim.tolist()} != live "
+            raise RuntimeError(f"{tag}: sim R_t {R_sim.tolist()} != live "
                                f"R_t {R_live.tolist()} at scrape {i}")
         caps = _net_caps(cc.control, arrivals)
         capped += int(any(np.any((R_live[b] == caps[b]) & (caps[b] < 100))
@@ -1363,24 +1381,30 @@ def serve_chain(cfg, params, shapes: dict, card: str) -> dict:
     med = statistics.median(upd_ms)
     p95 = float(np.percentile(upd_ms, 95))
     tokens = n_served * max_new
-    log(f"[chain] submitted {len(reqs)} served {served} rejected {rejected} "
+    summary = dict(served=served, rejected=rejected,
+                   final_R=[round(float(x), 4) for x in traj[-1]],
+                   tokens_per_s=round(tokens / secs, 1),
+                   update_ms_median=round(med, 4), update_ms_p95=round(p95, 4))
+    log(f"[{tag}] submitted {len(reqs)} served {served} rejected {rejected} "
         f"spilled {spilled} link_MB {[round(m, 4) for m in link_MB]} "
         f"drain_ticks={drained} tokens={tokens} wall={secs:.2f}s "
         f"tokens_per_s={tokens / secs:.1f} launches={launches}")
-    log(f"[chain] R_t per boundary per scrape: "
+    log(f"[{tag}] R_t per boundary per scrape: "
         f"{ {b: [round(float(x), 4) for x in traj[:, b]] for b in range(traj.shape[1])} }")
-    log(f"[chain] sim R_t == live R_t (np.array_equal) on all "
+    log(f"[{tag}] sim R_t == live R_t (np.array_equal) on all "
         f"{len(outputs)} scrapes; the net-aware cap bound on {capped} of "
         f"them")
-    log(f"[chain] controller_update host time over {len(upd_ms)} ticks: "
+    log(f"[{tag}] controller_update host time over {len(upd_ms)} ticks: "
         f"median {med:.4f} ms, p95 {p95:.4f} ms, max {max(upd_ms):.4f} ms")
-    log(f"[chain] {calls['prefill']} prefill calls, {calls['decode']} decode "
+    log(f"[{tag}] {calls['prefill']} prefill calls, {calls['decode']} decode "
         f"steps; K1 {launches['flash_attention']}, K2 "
         f"{launches['decode_attention']}, K3 "
         f"{launches['paged_decode_attention']} launches")
     for t in ("K1", "K2", "K3"):
-        log(f"[chain] {t} shapes -> launches: "
+        log(f"[{tag}] {t} shapes -> launches: "
             f"{ {str(k): v for k, v in sorted(shapes.get(t, {}).items())} }")
+    if eq1 != "window":
+        return launches, summary
 
     # one decode step per tier, every slot resident (the edge's rows fit
     # its pages: 8 x 10 of 128)
@@ -1397,6 +1421,46 @@ def serve_chain(cfg, params, shapes: dict, card: str) -> dict:
             prompts[slot] = toks
         _step_device(ep, prompts, card, "chain", f"tier {tier.name}"
                      f"{' (paged)' if ep.paged else ''}")
+    return launches, summary
+
+
+def sketch_chain(cfg, params, card: str, window_summary: dict) -> dict:
+    """Phase 5i: phase 5f's chain again with ``eq1="sketch"`` (the
+    controller reads Eq (1) from decayed histograms fed each scrape's
+    fresh samples), held to the same checks, its summary printed beside
+    5f's; then the sketch tick alone on the host at F = 1024 and 4096
+    (one boundary, window 64), beside the window tick at the same F."""
+    launches, summary = serve_chain(cfg, params, {}, card, eq1="sketch")
+    log(f"[5i] beside 5f: " + json.dumps({"5f window": window_summary,
+                                         "5i sketch": summary}))
+    import numpy as np
+    from repro_torch.core.policy import ControlLoop
+    rng = np.random.default_rng(0)
+    for F in (1024, 4096):
+        times = {}
+        for eq1 in ("sketch", "window"):
+            loop = ControlLoop("auto", F, window=64, eq1=eq1)
+            ms = []
+            for t in range(23):
+                ids = rng.integers(0, F, F)
+                vals = rng.gamma(2.0, 0.05, F).astype(np.float32)
+                if eq1 == "sketch":
+                    t0 = time.perf_counter()
+                    loop.step_stream([(ids, vals)], arrivals=[np.ones(F)])
+                else:
+                    lat = rng.gamma(2.0, 0.05, (F, 64)).astype(np.float32)
+                    valid = np.ones((F, 64), bool)
+                    t0 = time.perf_counter()
+                    loop.step(lat, valid, arrivals=np.ones(F))
+                if t >= 3:
+                    ms.append(1e3 * (time.perf_counter() - t0))
+            times[eq1] = (statistics.median(ms),
+                          float(np.percentile(ms, 95)))
+        log(f"[5i] host tick at F={F}, one boundary, W=64, F samples a "
+            f"tick: sketch median {times['sketch'][0]:.3f} ms p95 "
+            f"{times['sketch'][1]:.3f} ms; window median "
+            f"{times['window'][0]:.3f} ms p95 {times['window'][1]:.3f} ms "
+            f"(20 ticks after 3; host clock; {card})")
     return launches
 
 
@@ -1754,6 +1818,15 @@ def migration_hymba(cfg, params, card: str) -> dict:
                           16, RECURRENT_MAX_LEN, {}, card,
                           ("flash_attention", "decode_attention",
                            "ssd_scan"), cross_tick=False)
+
+
+def migration_rwkv6(cfg, params, card: str) -> dict:
+    """Phase 5h (e) on phase 5e's rwkv6 weights: the row is the WKV state
+    and two token shifts of 32 layers, 34,078,720 B at every position;
+    prefill through K4, decode the O(1) step (no kernel)."""
+    return migration_case("rwkv6", "e: dense -> dense, rwkv6", cfg, params,
+                          16, RECURRENT_MAX_LEN, {}, card, ("rwkv6_scan",),
+                          cross_tick=False)
 
 
 def migration_phase(cfg, params, card: str) -> dict:
@@ -2558,7 +2631,8 @@ def main() -> int:
                                                   paged_shapes).items()
                      if k.startswith("paged_")})
     shapes["K3"] = paged_shapes["K3"]
-    chain_launches = serve_chain(cfg, params, {}, card)
+    chain_launches, chain_summary = serve_chain(cfg, params, {}, card)
+    sketch_launches = sketch_chain(cfg, params, card, chain_summary)
     mig_launches = migration_phase(cfg, params, card)
     faas_bodies(card)
     sim_sweep()
@@ -2574,6 +2648,8 @@ def main() -> int:
     rcfg, rparams = full_model("rwkv6-7b")
     rw_shapes: dict = {}
     rw_launches = serve_rwkv6(rcfg, rparams, rw_shapes, card)
+    for k, n in migration_rwkv6(rcfg, rparams, card).items():
+        mig_launches[k] = mig_launches.get(k, 0) + n
     del rparams
     torch.cuda.empty_cache()
     rows, hy_rows, rw_rows, more = timing(shapes, launches, hy_shapes,
@@ -2583,6 +2659,7 @@ def main() -> int:
         if row["name"] in ("flash_attention", "decode_attention",
                            "paged_decode_attention"):
             row["launches_5f"] = chain_launches[row["name"]]
+            row["launches_5i"] = sketch_launches[row["name"]]
         row["launches_5h"] = mig_launches.get(row["name"], 0)
     log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")
     log(f"[time-rwkv6] {json.dumps({'k4_rwkv6': rw_rows})}")

@@ -18,8 +18,16 @@ reference's jitted rows kernel bit for bit: XLA on the CPU contracts
 three multiply-adds into FMAs, folds Eq (3)'s constants and flushes
 subnormals, so the port
 does the same at each site (float64 holds an exact float32 product, so
-``(a*b + c)`` rounded once to float32 is the FMA).  The streaming-sketch
-Eq-(1) front end is not ported yet.
+``(a*b + c)`` rounded once to float32 is the FMA; the helpers live in
+:mod:`repro_torch.core.xla_cpu`).  Both Eq-(1) front ends share one Eqs
+(2)-(4) tail (:func:`finish_rows`): the exact window percentiles
+(:func:`offload_update`) and the streaming histogram sketch over
+stacked rows (:func:`offload_update_rows_stream`, bitwise the
+reference's ``offload_update_rows_stream_jit``).
+
+The controller stays on the host: its contract is XLA:CPU's rounding,
+and the simulator's R_t must equal the live runtime's, whichever device
+serves the models.
 """
 
 from __future__ import annotations
@@ -29,6 +37,18 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core import quantile
+from repro_torch.core.xla_cpu import _fma, _ftz
+
+
+def padded_rows(n: int) -> int:
+    """Rows every stacked controller call pads to: the next power of two
+    (the reference's compile-shape rule).  The window rows are row-local,
+    but the sketch's summation and fusion depend on the row count
+    (:func:`~repro_torch.core.quantile.quantile_fast`), so the sketch's
+    R_t matches the reference's only at the reference's padding."""
+    return 1 << (max(int(n), 1) - 1).bit_length()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,24 +128,6 @@ def _nanpercentile(x: torch.Tensor, q: float) -> torch.Tensor:
     return _fma(hi_v, high_w, lo_v * low_w)
 
 
-_FLT_MIN = float(np.finfo(np.float32).tiny)
-
-
-def _ftz(x: torch.Tensor) -> torch.Tensor:
-    """Flush float32 subnormals to zero, as XLA's CPU code does (R_t
-    decaying by ``c_in`` every idle interval reaches them)."""
-    return torch.where(x.abs() < _FLT_MIN, torch.zeros_like(x), x)
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a*b + c`` with one rounding, as a fused multiply-add:
-    the float32 product is exact in float64, so only the sum rounds (a
-    second rounding to float32 could differ from a true FMA only on an
-    exact float32 tie after the float64 sum, which these inputs do not
-    reach in practice); subnormal results flush to zero."""
-    return _ftz((a.double() * b.double() + c.double()).float())
-
-
 # lint: ignore[parity-drift] -- the port imports nothing of repro;
 # tests/test_torch_control.py::test_eq1_eq3_match_reference holds this
 # copy against repro.core.offload.latency_ratio
@@ -192,6 +194,43 @@ def link_x100(link_bytes_per_s: float) -> float:
     return float(np.float32(100.0 * link_bytes_per_s))
 
 
+def finish_rows(state: OffloadState, r_l: torch.Tensor, active,
+                link_x100, req_bytes, net_mask, demand_rps,
+                cfg: OffloadConfig) -> Tuple[OffloadState, torch.Tensor]:
+    """Eqs (2)-(4) over rows, then the net cap.
+
+    ``r_l`` is each row's fresh Eq-(1) ratio; ``active`` (P,) freezes the
+    rows whose boundary saw nothing this interval (ring, head, fill and
+    R_t kept as they were), None steps every row.  The cap is data:
+    ``link_x100`` (``100 * link_bytes_per_s`` rounded once to float32),
+    ``req_bytes``, ``net_mask`` (the rows whose policy is net-aware) and
+    ``demand_rps``, each a value a row or one for all.  Bitwise the
+    reference's ``_finish_rows`` (subnormal results flushed, as XLA
+    does)."""
+    new = push_ratio(state, r_l)
+    r_prime = decayed_ratio(new, cfg)                   # Eq (2)
+    r_t = target_percentage(r_prime, cfg)               # Eq (3)
+    # Eq (4), contracted by XLA into fma(r_t, 1 - c_in, R * c_in)
+    c_in = torch.tensor(cfg.c_in, dtype=torch.float32)
+    one_m = torch.tensor(1.0 - cfg.c_in, dtype=torch.float32)
+    R = _fma(r_t, one_m.expand_as(r_t), _ftz(state.R * c_in))
+    net = torch.as_tensor(net_mask, dtype=torch.bool)
+    if net.any():
+        rps, req, link = (torch.as_tensor(v, dtype=torch.float32)
+                          for v in (demand_rps, req_bytes, link_x100))
+        cap = link / torch.clamp(rps * req, min=1e-9)
+        R = torch.where(net, torch.minimum(R, torch.clamp(cap, 0.0, 100.0)),
+                        R)
+    if active is None:
+        return OffloadState(new.ratios, new.head, new.filled, R), R
+    act = torch.as_tensor(active, dtype=torch.bool)
+    ratios = torch.where(act[:, None], new.ratios, state.ratios)
+    head = torch.where(act, new.head, state.head)
+    filled = torch.where(act, new.filled, state.filled)
+    R = torch.where(act, R, state.R)
+    return OffloadState(ratios, head, filled, R), R
+
+
 def offload_update(state: OffloadState, latencies, valid,
                    cfg: OffloadConfig,
                    demand_rps: Optional[torch.Tensor] = None
@@ -202,18 +241,28 @@ def offload_update(state: OffloadState, latencies, valid,
     percentage of traffic to send down-chain, bitwise equal to the
     reference's rows kernel (subnormal results flushed, as XLA does)."""
     r_l = latency_ratio(latencies, valid)               # Eq (1)
-    state = push_ratio(state, r_l)
-    r_prime = decayed_ratio(state, cfg)                 # Eq (2)
-    r_t = target_percentage(r_prime, cfg)               # Eq (3)
-    # Eq (4), contracted by XLA into fma(r_t, 1 - c_in, R * c_in)
-    c_in = torch.tensor(cfg.c_in, dtype=torch.float32)
-    one_m = torch.tensor(1.0 - cfg.c_in, dtype=torch.float32)
-    R = _fma(r_t, one_m.expand_as(r_t), _ftz(state.R * c_in))
-    if cfg.net_aware:
-        rps = torch.as_tensor(demand_rps, dtype=torch.float32)
-        req = torch.tensor(cfg.req_bytes, dtype=torch.float32)
-        cap = (torch.tensor(link_x100(cfg.link_bytes_per_s),
-                            dtype=torch.float32)
-               / torch.clamp(rps * req, min=1e-9))
-        R = torch.minimum(R, torch.clamp(cap, 0.0, 100.0))
-    return OffloadState(state.ratios, state.head, state.filled, R), R
+    return finish_rows(state, r_l, None, link_x100(cfg.link_bytes_per_s),
+                       cfg.req_bytes, cfg.net_aware, demand_rps, cfg)
+
+
+def latency_ratio_from_sketch(hist: quantile.Histogram) -> torch.Tensor:
+    """Eq (1) from the histogram sketch: (F,) p95/p50, floored at 1."""
+    p95, p50 = quantile.quantile_fast(hist, (0.95, 0.50))
+    return tail_ratio(p95, p50)
+
+
+def offload_update_rows_stream(
+        state: OffloadState, hist: quantile.Histogram, sample_rows,
+        sample_vals, sample_valid, sketch_decay, active, link_x100,
+        req_bytes, net_mask, demand_rps, cfg: OffloadConfig
+        ) -> Tuple[OffloadState, quantile.Histogram, torch.Tensor]:
+    """The streaming controller step: the tick's samples scattered into
+    each row's decayed histogram (:func:`quantile.ingest`), Eq (1) read
+    from the sketch, then Eqs (2)-(4) and the cap (:func:`finish_rows`).
+    No window is built or sorted.  Returns (state, hist, R)."""
+    hist = quantile.ingest(hist, sample_rows, sample_vals,
+                           valid=sample_valid, decay=sketch_decay)
+    r_l = latency_ratio_from_sketch(hist)               # Eq (1), sketched
+    state, R = finish_rows(state, r_l, active, link_x100, req_bytes,
+                           net_mask, demand_rps, cfg)
+    return state, hist, R

@@ -14,9 +14,12 @@ The port's counterpart of ``repro/core/policy.py``:
     ships slot-resident rows down-chain once R_t reaches it).
   * :class:`ControlLoop` — one scrape-and-update cycle: latency windows,
     in-flight queue-age mixing, demand RPS, policy update; one controller
-    boundary per adjacent tier pair.  The port keeps the reference's
-    per-boundary loop (the reference pins its vectorized rows path
-    bit-identical to it).
+    boundary per adjacent tier pair.  ``eq1`` picks the Eq-(1) front
+    end: ``"window"`` (exact sorted-window percentiles, stepped per
+    boundary) or ``"sketch"`` (decayed histograms fed the fresh samples
+    of each tick through :meth:`ControlLoop.step_stream`, every
+    (boundary, function) pair a row of one stacked state).  Both are
+    bitwise the reference's, whichever of its loops it takes.
 
 Routing draws its uniforms from an explicit ``np.random.Generator`` that
 the caller owns, and hands them to :mod:`repro_torch.core.router`.
@@ -32,7 +35,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core import offload, router
+from repro_torch.core import offload, quantile, router
 
 PolicySpec = Union[float, int, str, "Policy"]
 
@@ -190,6 +193,29 @@ class AutoOffload(Policy):
     def __init__(self, cfg: Optional[offload.OffloadConfig] = None):
         self.cfg = cfg or offload.OffloadConfig()
 
+    def _structural_cfg(self) -> offload.OffloadConfig:
+        """The Eq-(2)/(3)/(4) constants alone: the net-aware fields are
+        per-row data of the stacked update, so boundaries that differ
+        only in their link share one stack."""
+        return offload.OffloadConfig(
+            c_decay=self.cfg.c_decay, c_t=self.cfg.c_t,
+            c_soft=self.cfg.c_soft, c_hard=self.cfg.c_hard,
+            c_in=self.cfg.c_in)
+
+    def net_rows(self, num_rows: int
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(link_x100, req_bytes, net_mask) rows of the stacked update
+        (``link_x100`` rounded once to float32 on the host, as the
+        reference's)."""
+        if self.cfg.net_aware:
+            return (np.full(num_rows, offload.link_x100(
+                        self.cfg.link_bytes_per_s), np.float32),
+                    np.full(num_rows, np.float32(self.cfg.req_bytes),
+                            np.float32),
+                    np.ones(num_rows, bool))
+        return (np.zeros(num_rows, np.float32),
+                np.ones(num_rows, np.float32), np.zeros(num_rows, bool))
+
     def init_state(self, num_functions: int) -> offload.OffloadState:
         return offload.OffloadState.init(num_functions, self.cfg)
 
@@ -289,20 +315,32 @@ class ControlLoop:
     Eq (1) fire before slow completions drain out), derives demand RPS
     and asks each boundary's policy for fresh R_t percentages.  Boundary
     b is driven by tier b's signals and yields R_t[b], the percentage of
-    tier b's load pushed down the chain.  Every row's update reproduces
-    the reference's rounding, so a trajectory is bitwise the reference's
-    on the same inputs, whichever of its loops (per boundary or stacked
-    rows) the reference takes.
+    tier b's load pushed down the chain.
+
+    ``eq1="window"`` reads Eq (1) from the sorted windows (:meth:`step`,
+    :meth:`step_tiers`), one boundary at a time: the rows are row-local,
+    so this equals the reference's stacked rows kernel too.
+    ``eq1="sketch"`` reads it from decayed log-bucket histograms
+    (``sketch``, a :class:`~repro_torch.core.quantile.SketchSpec`) fed
+    each tick's fresh samples by :meth:`step_stream`.  The sketch's sums
+    depend on the row count, so it keeps the reference's layout: every
+    boundary on an unmodified auto-family policy with shared
+    Eq-(2)/(3)/(4) constants, row b*F + f of one state padded to
+    :func:`~repro_torch.core.offload.padded_rows`, one call a tick.
+    Every row reproduces the reference's rounding, so a trajectory is
+    bitwise the reference's on the same inputs.
     """
 
     def __init__(self, policy: PolicySpec, num_functions: int,
                  window: int = 64, control_interval_s: float = 1.0,
                  num_tiers: int = 2,
                  boundary_policies: Optional[Sequence[PolicySpec]] = None,
-                 eq1: str = "window", sketch=None):
+                 eq1: str = "window",
+                 sketch: Optional[quantile.SketchSpec] = None):
         if num_tiers < 1:
             raise ValueError(f"num_tiers must be >= 1, got {num_tiers}")
-        self.check_front_end(eq1, sketch)
+        if eq1 not in ("window", "sketch"):
+            raise ValueError(f'eq1 must be "window" or "sketch", got {eq1!r}')
         self.eq1 = eq1
         self.num_functions = num_functions
         self.window = window
@@ -320,24 +358,62 @@ class ControlLoop:
                     f"got {len(boundary_policies)}")
             self.policies = [Policy.parse(p) for p in boundary_policies]
             self.policy = self.policies[0]
-        self.states = [self.policies[b].init_state(num_functions)
-                       for b in range(self.num_boundaries)]
+        self._states: Optional[list] = None
+        if eq1 == "window":
+            self._states = [self.policies[b].init_state(num_functions)
+                            for b in range(self.num_boundaries)]
+        else:
+            if not self._vectorizable():
+                raise ValueError(
+                    'eq1="sketch" needs every boundary on an unmodified '
+                    "auto-family policy with shared controller constants")
+            # row b*F + f is (boundary b, function f)
+            self._P = offload.padded_rows(self.num_boundaries
+                                          * num_functions)
+            self._structural = self.policies[0]._structural_cfg()
+            self._vstate = offload.OffloadState.init(self._P,
+                                                     self._structural)
+            self._net_cache = None
+            self.sketch_spec = sketch or quantile.SketchSpec()
+            self._hist = quantile.Histogram.init(
+                self._P, self.sketch_spec.num_buckets,
+                self.sketch_spec.lo, self.sketch_spec.hi)
+            self._decay = torch.tensor(self.sketch_spec.decay,
+                                       dtype=torch.float32)
+            # a boundary becomes (and stays) active once it has ever
+            # produced a sample, as a window retains observations
+            self._seen = np.zeros(self.num_boundaries, bool)
         self.R_all = np.stack([self.policies[b].initial_R(num_functions)
                                for b in range(self.num_boundaries)])
         self.steps = 0
 
-    @staticmethod
-    def check_front_end(eq1: str, sketch=None) -> None:
-        """The one place that refuses an Eq-(1) front end the port lacks:
-        ``"window"`` (exact sorted-window percentiles) is ported, the
-        streaming sketch (``eq1="sketch"`` or a ``sketch`` spec) is not
-        and raises ``NotImplementedError``; anything else ``ValueError``."""
-        if eq1 == "sketch" or sketch is not None:
-            raise NotImplementedError(
-                'eq1="sketch": the streaming-sketch Eq-(1) front end is '
-                "not ported yet (ROADMAP.md, open item 3b)")
-        if eq1 != "window":
-            raise ValueError(f'eq1 must be "window" or "sketch", got {eq1!r}')
+    def _vectorizable(self) -> bool:
+        """True when every boundary can join the sketch's stacked update:
+        unmodified auto-family policies (no custom update / observe /
+        state hooks) sharing the Eq-(2)/(3)/(4) constants; net-aware
+        fields may differ (they are per-row data)."""
+        pols = self.policies
+        if not all(isinstance(p, AutoOffload) for p in pols):
+            return False
+        if not all(type(p).update is AutoOffload.update
+                   and type(p).observe is Policy.observe
+                   and type(p).init_state is AutoOffload.init_state
+                   for p in pols):
+            return False
+        return len({(p.cfg.c_decay, p.cfg.c_t, p.cfg.c_soft,
+                     p.cfg.c_hard, p.cfg.c_in) for p in pols}) == 1
+
+    @property
+    def states(self) -> list:
+        """Per-boundary controller states (views of the stacked state's
+        rows under the sketch)."""
+        if self._states is not None:
+            return self._states
+        F, s = self.num_functions, self._vstate
+        return [offload.OffloadState(
+                    s.ratios[b * F:(b + 1) * F], s.head[b * F:(b + 1) * F],
+                    s.filled[b * F:(b + 1) * F], s.R[b * F:(b + 1) * F])
+                for b in range(self.num_boundaries)]
 
     @staticmethod
     def _sample_ages(ages: Sequence[float], window: int) -> List[float]:
@@ -390,17 +466,47 @@ class ControlLoop:
             for fn, ages in enumerate(queue_ages):
                 if ages:
                     self.mix_queue_ages(lat, val, fn, ages, self.window)
-        self.states[b] = pol.observe(self.states[b], lat, val)
+        self._states[b] = pol.observe(self._states[b], lat, val)
         if val.any():
-            self.states[b], R = pol.update(self.states[b], lat, val, rps)
+            self._states[b], R = pol.update(self._states[b], lat, val, rps)
             self.R_all[b] = np.asarray(R, np.float32)
         return self.R_all[b]
+
+    def _net_row_arrays(self) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+        """Stacked per-row net-cap inputs, re-read from each boundary's
+        ``cfg`` every tick (a ``set_link_capacity`` re-caps the next
+        update); rebuilt only when a cfg changed."""
+        key = tuple(pol.cfg for pol in self.policies)
+        if self._net_cache is not None and self._net_cache[0] == key:
+            return self._net_cache[1]
+        F, P = self.num_functions, self._P
+        link = np.zeros(P, np.float32)
+        req = np.ones(P, np.float32)
+        net = np.zeros(P, bool)
+        for b, pol in enumerate(self.policies):
+            lo = b * F
+            link[lo:lo + F], req[lo:lo + F], net[lo:lo + F] = pol.net_rows(F)
+        arrays = (torch.from_numpy(link), torch.from_numpy(req),
+                  torch.from_numpy(net))
+        self._net_cache = (key, arrays)
+        return arrays
+
+    def _row_rps(self, per_b_rps: Sequence[np.ndarray]) -> torch.Tensor:
+        F = self.num_functions
+        rps = np.full(self._P, 1e-3, np.float32)
+        for b, r in enumerate(per_b_rps):
+            rps[b * F:(b + 1) * F] = r
+        return torch.from_numpy(rps)
 
     def step(self, latencies: np.ndarray, valid: np.ndarray,
              queue_ages: Optional[Sequence[Sequence[float]]] = None,
              arrivals: Optional[Sequence[float]] = None) -> np.ndarray:
         """One control interval on the ingress boundary -> (F,) R_t.
         Deeper boundaries are left untouched (see :meth:`step_tiers`)."""
+        if self.eq1 == "sketch":
+            raise ValueError('eq1="sketch" loops are driven by '
+                             "step_stream(), not step()")
         out = self._step_boundary(0, latencies, valid, queue_ages,
                                   self._rps(arrivals))
         self.steps += 1
@@ -417,6 +523,9 @@ class ControlLoop:
         one flat per-function count shared by every boundary, or one per
         boundary.  Returns the (num_tiers-1, F) stack of R_t.
         """
+        if self.eq1 == "sketch":
+            raise ValueError('eq1="sketch" loops are driven by '
+                             "step_stream(), not step_tiers()")
         if len(latencies) != self.num_boundaries:
             raise ValueError(
                 f"{self.num_boundaries} boundaries need {self.num_boundaries}"
@@ -429,6 +538,69 @@ class ControlLoop:
         for b in range(self.num_boundaries):
             qa = queue_ages[b] if queue_ages is not None else None
             self._step_boundary(b, latencies[b], valid[b], qa, per_b[b])
+        self.steps += 1
+        return self.R_all
+
+    def step_stream(self, samples: Sequence,
+                    queue_ages: Optional[Sequence] = None,
+                    arrivals: Optional[Sequence] = None) -> np.ndarray:
+        """One streaming control interval (``eq1="sketch"`` loops).
+
+        samples: per-boundary ``(fn_ids, values)`` pairs of the latencies
+        recorded since the last tick (``MetricsRegistry.drain_fresh``),
+        or None for an idle boundary; queue_ages: as in
+        :meth:`step_tiers`, subsampled by :meth:`_sample_ages` and
+        ingested as extra samples; arrivals: as in :meth:`step_tiers`.
+        The batch is padded to a power of two (at least 8) with invalid
+        samples, then every row's histogram and controller advance in one
+        call.  Returns the (num_tiers-1, F) stack of R_t."""
+        if self.eq1 != "sketch":
+            raise ValueError('step_stream() requires eq1="sketch"')
+        if len(samples) != self.num_boundaries:
+            raise ValueError(
+                f"{self.num_boundaries} boundaries need {self.num_boundaries}"
+                f" sample sets, got {len(samples)}")
+        F, B, P = self.num_functions, self.num_boundaries, self._P
+        per_b = self._per_boundary_rps(arrivals)
+        rows_parts: List[np.ndarray] = []
+        vals_parts: List[np.ndarray] = []
+        for b in range(B):
+            if samples[b] is not None:
+                ids, vals = samples[b]
+                if len(ids):
+                    rows_parts.append(np.asarray(ids, np.int64) + b * F)
+                    vals_parts.append(np.asarray(vals, np.float32))
+            qa = queue_ages[b] if queue_ages is not None else None
+            if qa is not None:
+                for fn, ages in enumerate(qa):
+                    sel = self._sample_ages(ages, self.window)
+                    if sel:
+                        rows_parts.append(
+                            np.full(len(sel), b * F + fn, np.int64))
+                        vals_parts.append(np.asarray(sel, np.float32))
+        rows = (np.concatenate(rows_parts) if rows_parts
+                else np.zeros(0, np.int64))
+        vals = (np.concatenate(vals_parts) if vals_parts
+                else np.zeros(0, np.float32))
+        for b in range(B):
+            if not self._seen[b] and rows.size:
+                self._seen[b] = bool(np.any((rows >= b * F)
+                                            & (rows < (b + 1) * F)))
+        S = max(8, 1 << (max(int(rows.size), 1) - 1).bit_length())
+        rows_p = np.zeros(S, np.int64)
+        vals_p = np.zeros(S, np.float32)
+        svalid = np.zeros(S, bool)
+        rows_p[:rows.size] = rows
+        vals_p[:vals.size] = vals
+        svalid[:rows.size] = True
+        active = np.zeros(P, bool)
+        active[:B * F] = np.repeat(self._seen, F)
+        self._vstate, self._hist, R = offload.offload_update_rows_stream(
+            self._vstate, self._hist, torch.from_numpy(rows_p),
+            torch.from_numpy(vals_p), torch.from_numpy(svalid), self._decay,
+            torch.from_numpy(active), *self._net_row_arrays(),
+            self._row_rps(per_b), self._structural)
+        self.R_all = R.numpy()[:B * F].reshape(B, F).astype(np.float32)
         self.steps += 1
         return self.R_all
 

@@ -10,8 +10,9 @@ schedules with tier crash and replay.  It draws from
 ``np.random.default_rng(cfg.seed)`` in the reference's order, and its
 controller is the port's own :class:`~repro_torch.core.policy.ControlLoop`
 (bitwise the reference's rounding), so a run's :class:`SimResult` equals
-the reference's field for field.  The streaming-sketch Eq-(1) front end
-(``eq1="sketch"``) is not ported yet and raises.
+the reference's field for field, under either Eq-(1) front end
+(``eq1="window"``, or ``"sketch"``: each scrape drains the samples
+recorded since the last into the controller's histograms).
 """
 
 from __future__ import annotations
@@ -609,15 +610,19 @@ class ContinuumSimulator:
                 for b in range(self.control.num_boundaries):
                     bq = tiers[b].queue if b < len(tiers) else ()
                     qages.append([[t - qarr for qarr, _qsize in bq]])
-                lats, valids = [], []
-                for b in range(self.control.num_boundaries):
-                    lat, valid = self.tier_metrics[b].latency_windows(
-                        cfg.window)
-                    lats.append(lat)
-                    valids.append(valid)
-                R_all = self.control.step_tiers(
-                    lats, valids, queue_ages=qages,
-                    arrivals=[[c] for c in arrivals_in_interval])
+                arrivals = [[c] for c in arrivals_in_interval]
+                if self.control.eq1 == "sketch":
+                    samples = [self.tier_metrics[b].drain_fresh()
+                               for b in range(self.control.num_boundaries)]
+                    R_all = self.control.step_stream(
+                        samples, queue_ages=qages, arrivals=arrivals)
+                else:
+                    lats, valids = zip(*[
+                        self.tier_metrics[b].latency_windows(cfg.window)
+                        for b in range(self.control.num_boundaries)])
+                    R_all = self.control.step_tiers(
+                        list(lats), list(valids), queue_ages=qages,
+                        arrivals=arrivals)
                 R_cur = np.array(R_all[:N - 1, 0], np.float64)
                 push(t + cfg.control_interval_s, _CONTROL)
                 arrivals_in_interval = [0] * n_bounds

@@ -36,9 +36,11 @@ number in [0, 100] (static split), ``"auto"`` (the paper's Eqs (1)-(4)),
 and its modifiers in any combination: ``+net`` (the link-capacity cap),
 ``+hedge`` (p99 straggler backups), ``+migrate`` (mid-stream migration of
 slot-resident rows with their cache state).  ``scheduler="wave"`` keeps
-the run-to-completion wave drain as the baseline.  The sketch Eq-(1)
-front end raises (ROADMAP.md, open item 3b).  The simulator is numpy on
-the host and runs anywhere; the live runtime defaults to the card.
+the run-to-completion wave drain as the baseline.  ``eq1="sketch"``
+(in ``simulate`` and ``from_topology``) reads the controller's Eq (1)
+from streaming histograms instead of sorted windows.  The simulator is
+numpy on the host and runs anywhere; the live runtime defaults to the
+card.
 """
 
 from __future__ import annotations
@@ -79,9 +81,12 @@ class Continuum(EdgeCloudContinuum):
 
     @classmethod
     def from_topology(cls, topology: Topology, policy: PolicySpec = "auto",
+                      eq1: str = "window", sketch=None,
                       **kwargs) -> "Continuum":
-        """The live runtime over an explicit N-tier chain."""
-        return cls(policy=policy, topology=topology, **kwargs)
+        """The live runtime over an explicit N-tier chain; ``eq1`` and
+        ``sketch`` pick the controller's Eq-(1) front end."""
+        return cls(policy=policy, topology=topology, eq1=eq1,
+                   sketch=sketch, **kwargs)
 
     def drain(self, max_ticks: int = 1000) -> int:
         """Tick until every gateway backlog, in-flight slot and migration
@@ -108,8 +113,9 @@ class Continuum(EdgeCloudContinuum):
                  eq1: str = "window", sketch=None) -> SimResult:
         """One simulator run of ``workload`` under ``policy`` over the
         paper's 2-tier apparatus or an explicit ``topology``; a ``trace``
-        replaces the ramped-Poisson arrivals and ``faults`` injects link
-        and tier faults mid-run."""
+        replaces the ramped-Poisson arrivals, ``faults`` injects link
+        and tier faults mid-run, and ``eq1="sketch"`` (with an optional
+        ``sketch`` spec) switches Eq (1) to the streaming sketch."""
         return ContinuumSimulator(workload, policy, cfg or SimConfig(),
                                   offload_cfg=offload_cfg,
                                   topology=topology, trace=trace,

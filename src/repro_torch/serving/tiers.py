@@ -54,8 +54,9 @@ weights deployed.  Each boundary parses the policy against its own link's
 bandwidth and the ``req_bytes`` hint, so ``"auto+net"`` caps offload by
 the link actually crossed (as the simulator's boundaries do).  A
 ``trace=`` submits each row at the top of the tick covering its arrival
-time.  The sketch Eq-(1) front end is not ported and raises (ROADMAP.md,
-open item 3b).
+time.  ``eq1="sketch"`` reads Eq (1) from decayed histograms fed the
+latencies each tier recorded since the last scrape
+(:meth:`~repro_torch.core.policy.ControlLoop.step_stream`).
 """
 
 from __future__ import annotations
@@ -486,7 +487,10 @@ class EdgeCloudContinuum:
     clock.  ``reject_latency_s`` is the latency a 503 records.
     ``max_waves_per_tick`` caps the admission rounds and
     ``max_steps_per_tick`` the decode steps of one tick (None: no cap).
-    ``eq1="sketch"`` raises (ROADMAP.md, open item 3b)."""
+    ``eq1`` picks the controller's Eq-(1) front end, ``"window"`` (exact
+    percentiles of the latency windows) or ``"sketch"`` (histograms of
+    ``sketch``, a :class:`~repro_torch.core.quantile.SketchSpec`, fed the
+    fresh samples of each scrape)."""
 
     def __init__(self, edge=None, cloud=None,
                  policy: PolicySpec = "auto",
@@ -513,7 +517,8 @@ class EdgeCloudContinuum:
         if scheduler not in ("continuous", "wave"):
             raise ValueError(
                 f"scheduler must be 'continuous' or 'wave', got {scheduler!r}")
-        ControlLoop.check_front_end(eq1, sketch)
+        if eq1 not in ("window", "sketch"):
+            raise ValueError(f'eq1 must be "window" or "sketch", got {eq1!r}')
         self.device = resolve(device)
         if topology is None:
             if edge is None or cloud is None:
@@ -543,6 +548,7 @@ class EdgeCloudContinuum:
         self.window = window
         self.control_interval_s = control_interval_s
         self.eq1 = eq1
+        self.sketch = sketch
         # fast rejections are part of the latency distribution Eq (1)
         # scrapes (queue-proxy 503 semantics, as in the simulator)
         self.reject_latency_s = reject_latency_s
@@ -664,7 +670,8 @@ class EdgeCloudContinuum:
                                      links[min(b, len(links) - 1)]
                                      .bandwidth_Bps if links else None),
                                  req_bytes=self.req_bytes)
-                    for b in range(self._num_boundaries)])
+                    for b in range(self._num_boundaries)],
+                eq1=self.eq1, sketch=self.sketch)
 
     # -- request path (paper §3.3.2) ------------------------------------------
     def submit(self, fn_name: str, req: Request) -> bool:
@@ -844,20 +851,28 @@ class EdgeCloudContinuum:
 
     def controller_update(self) -> np.ndarray:
         """One scrape-and-update cycle: boundary b sees tier b's latency
-        windows, its gateway's backlog ages and the demand that crossed
-        into tier b; returns the ingress boundary's R_t percentages."""
+        windows (or, under ``eq1="sketch"``, the samples tier b recorded
+        since the last scrape), its gateway's backlog ages and the demand
+        that crossed into tier b; returns the ingress boundary's R_t
+        percentages."""
         now = time.perf_counter()
-        qages, lats, valids = [], [], []
-        for b in range(self.control.num_boundaries):
-            tier_i = min(b, len(self.tiers) - 1)   # 1-tier chain: b=0
-            qages.append(self.gateways[tier_i].backlog_ages(
+        qages = []
+        tier_of = [min(b, len(self.tiers) - 1)     # 1-tier chain: b=0
+                   for b in range(self.control.num_boundaries)]
+        for i in tier_of:
+            qages.append(self.gateways[i].backlog_ages(
                 now, self._tick_no, self._fn_ids, len(self.fn_names)))
-            lat, valid = self.tiers[tier_i].metrics.latency_windows(
-                self.window)
-            lats.append(lat)
-            valids.append(valid)
-        R_all = self.control.step_tiers(lats, valids, queue_ages=qages,
-                                        arrivals=list(self._crossings))
+        arrivals = list(self._crossings)
+        if self.control.eq1 == "sketch":
+            samples = [self.tiers[i].metrics.drain_fresh() for i in tier_of]
+            R_all = self.control.step_stream(samples, queue_ages=qages,
+                                             arrivals=arrivals)
+        else:
+            lats, valids = zip(*[self.tiers[i].metrics.latency_windows(
+                self.window) for i in tier_of])
+            R_all = self.control.step_tiers(list(lats), list(valids),
+                                            queue_ages=qages,
+                                            arrivals=arrivals)
         self._crossings = [np.zeros_like(c) for c in self._crossings]
         return R_all[0]
 

@@ -320,9 +320,9 @@ def test_chain_net_aware_boundaries_parse_like_reference():
 
 
 def test_live_runtime_refuses_what_is_not_ported():
-    """Hedging, migration and live faults are ported (their own files
-    hold them); the sketch front end, a bad ``trace_prompts`` or
-    ``scheduler`` and a missing card still raise."""
+    """Hedging, migration, live faults and the sketch front end are
+    ported (their own files hold them); a bad ``eq1``, ``trace_prompts``
+    or ``scheduler`` and a missing card still raise."""
     topo = t_topo.Topology.device_edge_cloud(max_len=32)
     for spec in ("auto+hedge", "auto+migrate", "auto+net+hedge+migrate"):
         cc = t_platform.Continuum.from_topology(topo, policy=spec,
@@ -331,8 +331,11 @@ def test_live_runtime_refuses_what_is_not_ported():
     cc = t_platform.Continuum.from_topology(
         topo, device="cpu", faults=t_faults.edge_brownout(1.0, 2.0))
     assert cc.faults is not None and cc.link_state[0].up
-    with pytest.raises(NotImplementedError, match="open item 3b"):
-        t_platform.Continuum.from_topology(topo, device="cpu", eq1="sketch")
+    cc = t_platform.Continuum.from_topology(topo, device="cpu",
+                                            eq1="sketch")
+    assert cc.eq1 == "sketch"
+    with pytest.raises(ValueError, match="eq1"):
+        t_platform.Continuum.from_topology(topo, device="cpu", eq1="exact")
     with pytest.raises(ValueError, match="trace_prompts"):
         t_platform.Continuum.from_topology(topo, device="cpu",
                                            trace_prompts="zipf")

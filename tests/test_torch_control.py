@@ -298,8 +298,17 @@ def test_policy_parse_unported_modifiers_raise(spec):
 
 
 def test_sketch_front_end_raises():
-    with pytest.raises(NotImplementedError, match="open item 3"):
-        t_policy.ControlLoop("auto", 1, eq1="sketch")
+    """The sketch front end is ported: what it raises now is the
+    reference's dispatch (``tests/test_torch_sketch.py`` holds its
+    trajectories)."""
+    sk = t_policy.ControlLoop("auto", 1, eq1="sketch")
+    assert sk.eq1 == "sketch" and sk._P == 1
+    with pytest.raises(ValueError, match="step_stream"):
+        sk.step(np.ones((1, 8), np.float32), np.ones((1, 8), bool))
+    with pytest.raises(ValueError, match="eq1"):
+        t_policy.ControlLoop("auto", 1, eq1="exact")
+    with pytest.raises(ValueError, match="auto-family"):
+        t_policy.ControlLoop(50.0, 1, eq1="sketch")
 
 
 @pytest.mark.parametrize("spec", ["bogus", "auto+fast", "101", -1])

@@ -186,8 +186,11 @@ def test_sim_replays_the_sim_controller_inputs():
 
 
 def test_sim_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        t_sim.ContinuumSimulator("io", "auto", eq1="sketch")
+    # the sketch front end is ported; a static split cannot drive it
+    assert t_sim.ContinuumSimulator("io", "auto",
+                                    eq1="sketch").control.eq1 == "sketch"
+    with pytest.raises(ValueError):
+        t_sim.ContinuumSimulator("io", 50.0, eq1="sketch")
     # hedging is ported: the simulator takes "auto+hedge" as the
     # reference does (its boundaries run the auto controller)
     assert type(t_sim.ContinuumSimulator("io", "auto+hedge").control
