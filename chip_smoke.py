@@ -15,8 +15,12 @@ Phases, each raising on failure (the script then exits non-zero):
    bfloat16 (2e-2) and float32 (2e-5 abs / 2e-4 rel), at the main path's
    shapes and at ragged, windowed, soft-capped and grouped-query ones,
    hymba-1.5b's attention shapes among them (25 query heads over 5 kv
-   heads, window 1024); K1 also with kv positions out of slot order,
-   with rows that see no key (exactly zero) and with a 5-token prompt;
+   heads, window 1024), and those of qwen2-moe-a2.7b (16/16 at head_dim
+   128), qwen2.5-14b (40/8 at 128) and internvl2-1b (14/2 at 64) for K1
+   at B=1 S=512 and K2 at B=16 T=1024 and the edge's B=2, K3 at B=16 with
+   64 pages a row of 16 for qwen2-moe; K1 also with kv positions out of
+   slot order, with rows that see no key (exactly zero) and with a
+   5-token prompt;
    K2 and K3 at shapes their launcher splits over clusters of 1, 2, 4
    and 8 blocks (the cluster size is printed); the paged kernel K3 over
    shuffled pages, and bitwise against K2 on the gathered view; the
@@ -34,6 +38,10 @@ Phases, each raising on failure (the script then exits non-zero):
    card's run must launch exactly the family's kernels);
 4b. the same for the hymba smoke model (K1, K2 and K5 on the card);
 4c. the same for the rwkv6 smoke model (K4 alone on the card);
+4d. the same for the smoke models of qwen2-moe-a2.7b, mixtral-8x7b
+   (window 16 over a 48-token context), qwen2.5-14b, internvl2-1b and
+   musicgen-medium (K1 and K2), and for qwen2-moe on paged endpoints
+   (K1 and K3);
 5. the dense main path: full-width stablelm-1.6b (bf16, seeded random
    weights drawn on the card) served by ``repro_torch.platform.Continuum``
    over a 2-tier edge -> cloud continuum (edge 2 slots, cloud 16,
@@ -124,6 +132,20 @@ Phases, each raising on failure (the script then exits non-zero):
    sketch tick alone on the host at F = 1024 and 4096 (one boundary,
    window 64, F samples a tick) beside the window tick.  The K1-K3 rows
    carry ``launches_5i``;
+5j. (after 5e, its weights freed) the MoE main path: full-width
+   qwen2-moe-a2.7b (bf16, 14.3 B parameters, seeded random weights drawn
+   on the card): (a) phase 5's 2-tier continuum (edge 2 slots, cloud 16,
+   max_len 1024, auto), 40 requests of 32 new tokens, prompts of 64, 128,
+   256, 384 and 512 tokens; (c) its cloud endpoint's 512-token prefill
+   and 16-row decode step, wall, device time, busy share and device time
+   by category (attention kernels, routed expert products, shared
+   experts, routing / dispatch / combine glue, the rest); (b) 5b's paged
+   == dense schedule.  Fails unless every request is served with 32
+   tokens, K1 and K2 launched (K3 in (b)) and nothing else did, and the
+   paged ids equal the dense ones at every step;
+5k. (after 5j, its weights freed) full-width qwen2.5-14b (bf16, 14.8 B
+   parameters): 16 requests through 5j's continuum, the same checks and
+   cloud endpoint times;
 5g. the paper's four FaaS bodies (matmult n=256, image_proc 128,
    random_io 2^16, mixed 128) on the card, each against its CPU run on
    the same drawn tensors (1e-4 abs / 1e-4 rel), timed with CUDA events;
@@ -143,7 +165,9 @@ Phases, each raising on failure (the script then exits non-zero):
    launches there; a line sums launches x device time over phase 5e, and
    the shapes and launches are left in ``build/rwkv6_main_path_k4.json``),
    and K1 at the smaller prefill
-   buckets phase 5 launched and K2 at the edge's B = 2, on lines of their
+   buckets phase 5 launched and K2 at the edge's B = 2, and K1, K2 and K3
+   at qwen2-moe's shapes (K2 also at its edge's B = 2; launches from 5j)
+   and K1 and K2 at qwen2.5-14b's (launches from 5k), on lines of their
    own.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -376,6 +400,11 @@ def parity() -> None:
         ("hymba-512", 2, 512, 512, 25, 5, 64, True, 1024, None),
         ("hymba-win1024", 1, 1280, 1280, 25, 5, 64, True, 1024, None),
         ("hymba-global", 1, 1024, 1024, 25, 5, 64, True, None, None),
+        # qwen2-moe-a2.7b 16/16 and qwen2.5-14b 40/8 at head_dim 128,
+        # internvl2-1b 14/2 (G = 7) at 64
+        ("qwen2-moe", 1, 512, 512, 16, 16, 128, True, None, None),
+        ("qwen2.5-g5", 1, 512, 512, 40, 8, 128, True, None, None),
+        ("internvl2-g7", 1, 512, 512, 14, 2, 64, True, None, None),
     ]
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
@@ -430,6 +459,13 @@ def parity() -> None:
         ("hymba-global", 16, 2048, 25, 5, 64, None, None),
         ("cluster2", 16, 512, 10, 10, 64, None, None),
         ("edge", 2, 1024, 32, 32, 64, None, None),
+        # the same three layouts at the cloud's B = 16 and the edge's B = 2
+        ("qwen2-moe", 16, 1024, 16, 16, 128, None, None),
+        ("qwen2.5-g5", 16, 1024, 40, 8, 128, None, None),
+        ("internvl2-g7", 16, 1024, 14, 2, 64, None, None),
+        ("qwen2-moe-edge", 2, 1024, 16, 16, 128, None, None),
+        ("qwen2.5-edge", 2, 1024, 40, 8, 128, None, None),
+        ("internvl2-edge", 2, 1024, 14, 2, 64, None, None),
     ]
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
@@ -445,7 +481,7 @@ def parity() -> None:
             if got[0].abs().max().item() != 0.0:
                 raise RuntimeError(f"K2 {label} {dname}: the empty row is "
                                    f"not zero")
-            log(f"[parity] K2 decode_attention {label:13s} {dname:8s} "
+            log(f"[parity] K2 decode_attention {label:14s} {dname:8s} "
                 f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} "
                 f"cluster={C} max_abs_err={err:.3e} ok")
 
@@ -511,6 +547,7 @@ def parity_paged() -> None:
         ("cluster2", 16, 32, 16, 10, 10, 64, None, None),
         ("hymba", 16, 64, 16, 25, 5, 64, 1024, None),
         ("edge", 2, 64, 16, 32, 32, 64, None, None),
+        ("qwen2-moe", 16, 64, 16, 16, 16, 128, None, None),
     ]
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
@@ -669,11 +706,12 @@ def parity_rwkv() -> None:
 
 
 def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
-                                             "decode_attention")) -> None:
+                                             "decode_attention"),
+                       paged: bool = False) -> None:
     """The smoke model of ``arch`` on the card (kernels) and on the CPU
     (plain versions), same weights, same requests: greedy ids must match,
     and the card's run must have launched each of ``kernels`` and nothing
-    else."""
+    else.  ``paged``: both endpoints hold a page pool (page 16)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -684,7 +722,8 @@ def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
     params_cpu = model_zoo.init(cfg, torch.Generator().manual_seed(0))
     params_gpu = {k: v.cuda() for k, v in params_cpu.items()}
     rng = np.random.default_rng(0)
-    eps = {dev: Endpoint(cfg, p, slots=4, max_len=48, device=dev)
+    kw = dict(paged=True, page_size=16) if paged else {}
+    eps = {dev: Endpoint(cfg, p, slots=4, max_len=48, device=dev, **kw)
            for dev, p in (("cpu", params_cpu), ("cuda", params_gpu))}
     prompts = {i: rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32)
                for i, L in enumerate((5, 17, 17, 30))}
@@ -707,7 +746,8 @@ def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
     if any(launched[k] <= 0 for k in kernels) or any(
             n for k, n in launched.items() if k not in kernels):
         raise RuntimeError(f"{arch} smoke model on the card: {launched}")
-    log(f"[model] {arch} smoke model on cuda == cpu plain path: "
+    log(f"[model] {arch}{' paged' if paged else ''} smoke model on cuda "
+        f"== cpu plain path: "
         f"{sum(len(v) for v in streams['cuda'].values())} tokens identical; "
         f"card launches { {k: launched[k] for k in kernels} }")
 
@@ -850,12 +890,27 @@ def full_model(arch: str):
     return cfg, params
 
 
-def paged_vs_dense(cfg, params, card: str) -> None:
-    """Phase 5b: a dense and a paged endpoint (page 16, no prefix cache)
-    over one set of weights, driven through one fixed admit / decode /
-    retire schedule; the token ids must agree at every step."""
+def free_card(what: str) -> None:
+    """Free a model's weights and every cache built over them: the
+    continua and endpoints of a phase hold them in reference cycles, which
+    only the collector breaks."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mem] after {what}: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated on the card")
+
+
+def paged_vs_dense(cfg, params, card: str, shapes: dict, tag: str) -> dict:
+    """Phases 5b and 5j (b): a dense and a paged endpoint (page 16, no
+    prefix cache) over one set of weights, driven through one fixed admit
+    / decode / retire schedule; the token ids must agree at every step,
+    and K1, K2 (dense) and K3 (paged) must launch and nothing else.
+    Records the kernels' shapes in ``shapes``; returns the launches."""
     import numpy as np
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.serving.engine import Endpoint
     slots, max_len, max_new, n_req = 16, 1024, 32, 24
     dense = Endpoint(cfg, params, slots=slots, max_len=max_len,
@@ -869,51 +924,61 @@ def paged_vs_dense(cfg, params, card: str) -> None:
     cur, left = {}, {}
     times = {"dense": [], "paged": []}
     steps = tokens = 0
-    while waiting or cur:
-        # admit up to 4 waiting requests a step into free slots
-        batch = {}
-        while waiting and len(batch) < 4 and dense.active < slots:
-            toks = waiting.pop(0)
-            sd = dense.try_claim(tokens=toks, max_new=max_new)
-            sp = paged.try_claim(tokens=toks, max_new=max_new)
-            if sd != sp or sd is None:
-                raise RuntimeError(f"claims diverged: dense {sd} paged {sp}")
-            batch[sd] = toks
-        if batch:
-            fd = dense.prefill_batch(batch)
-            fp = paged.prefill_batch(batch)
-            if fd != fp:
-                raise RuntimeError(f"first tokens differ: {fd} vs {fp}")
-            for s, t in fd.items():
-                cur[s], left[s] = t, max_new - 1
+    ops.reset_launches()
+    with recording(shapes):
+        while waiting or cur:
+            # admit up to 4 waiting requests a step into free slots
+            batch = {}
+            while waiting and len(batch) < 4 and dense.active < slots:
+                toks = waiting.pop(0)
+                sd = dense.try_claim(tokens=toks, max_new=max_new)
+                sp = paged.try_claim(tokens=toks, max_new=max_new)
+                if sd != sp or sd is None:
+                    raise RuntimeError(f"claims diverged: dense {sd} "
+                                       f"paged {sp}")
+                batch[sd] = toks
+            if batch:
+                fd = dense.prefill_batch(batch)
+                fp = paged.prefill_batch(batch)
+                if fd != fp:
+                    raise RuntimeError(f"first tokens differ: {fd} vs {fp}")
+                for s, t in fd.items():
+                    cur[s], left[s] = t, max_new - 1
+                    tokens += 1
+            if not cur:
+                continue
+            for name, ep in (("dense", dense), ("paged", paged)):
+                t0 = time.perf_counter()
+                out = ep.decode_all(dict(cur))
+                times[name].append(time.perf_counter() - t0)
+                if name == "dense":
+                    nd = out
+                elif out != nd:
+                    raise RuntimeError(f"step {steps}: paged tokens {out} != "
+                                       f"dense {nd}")
+            steps += 1
+            for s in list(cur):
+                cur[s], left[s] = nd[s], left[s] - 1
                 tokens += 1
-        if not cur:
-            continue
-        for name, ep in (("dense", dense), ("paged", paged)):
-            t0 = time.perf_counter()
-            out = ep.decode_all(dict(cur))
-            times[name].append(time.perf_counter() - t0)
-            if name == "dense":
-                nd = out
-            elif out != nd:
-                raise RuntimeError(f"step {steps}: paged tokens {out} != "
-                                   f"dense {nd}")
-        steps += 1
-        for s in list(cur):
-            cur[s], left[s] = nd[s], left[s] - 1
-            tokens += 1
-            if left[s] <= 0:
-                dense.release(s)
-                paged.release(s)
-                del cur[s], left[s]
+                if left[s] <= 0:
+                    dense.release(s)
+                    paged.release(s)
+                    del cur[s], left[s]
+    launches = dict(ops.launches)
+    want = ("flash_attention", "decode_attention", "paged_decode_attention")
+    if min(launches[k] for k in want) <= 0 or any(
+            n for k, n in launches.items() if k not in want):
+        raise RuntimeError(f"[{tag}] paged == dense ran {launches}")
     if not paged.pool.check_balanced() or paged.free_pages != \
             paged.total_pages:
         raise RuntimeError("paged pool not balanced after the schedule")
-    log(f"[paged==dense] {n_req} requests, {steps} decode steps, {tokens} "
-        f"tokens: paged token ids == dense at every step")
-    log(f"[paged==dense] median decode_all wall, 16 slots: dense "
+    log(f"[{tag}] paged==dense: {n_req} requests, {steps} decode steps, "
+        f"{tokens} tokens: paged token ids == dense at every step; "
+        f"launches {launches}")
+    log(f"[{tag}] paged==dense: median decode_all wall, 16 slots: dense "
         f"{1e3 * statistics.median(times['dense']):.3f} ms, paged "
         f"{1e3 * statistics.median(times['paged']):.3f} ms ({card})")
+    return launches
 
 
 def serve_paged(cfg, params, shapes: dict) -> dict:
@@ -1007,10 +1072,17 @@ def serve_paged(cfg, params, shapes: dict) -> dict:
     return launches
 
 
+# phase 4d: the smoke models of the MoE family and the other one-card
+# configurations
+NEW_SMOKE_ARCHS = ("qwen2-moe-a2.7b", "mixtral-8x7b", "qwen2.5-14b",
+                   "internvl2-1b", "musicgen-medium")
+
 # prompt lengths both scans' rule admits (S <= 128 or S % 128 == 0)
 SCAN_PROMPTS = (64, 100, 128, 256, 384, 512)
 LONG_PROMPT = 1024                  # past hymba's 1024-token window
 RECURRENT_MAX_LEN = 2048
+RECURRENT_ROUNDS = (2, 3, 4, 5, 6, 6, 7, 7)         # 40 requests
+RECURRENT_LONG_RIDS = (3, 12, 22, 33)               # 1024-token prompts
 PREFILL_KERNELS = ("flash_attention", "rwkv6_scan", "ssd_scan")
 KERNEL_TAGS = {"flash_attention": "K1", "decode_attention": "K2",
                "paged_decode_attention": "K3", "rwkv6_scan": "K4",
@@ -1032,42 +1104,50 @@ def _wall_ms(fn, reps: int) -> float:
 
 def _device_ms(fn, n: int):
     """Device time of one call of ``fn`` under ``torch.profiler`` (mean of
-    ``n`` calls): (total ms, {kernel name: ms})."""
+    ``n`` calls): (total ms, {kernel name: ms}, the split by category of
+    ``repro_torch.launch.profile.breakdown``: attention kernels, the MoE
+    helpers' ranges, the rest)."""
     import torch
+    from repro_torch.launch import profile
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profile.moe_spans(), torch.profiler.profile(activities=acts) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+    spans = set(profile.MOE_SPANS.values())
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name not in spans):
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / n)
     if not by_name:
         raise RuntimeError("the profiler recorded no device time")
-    return sum(by_name.values()), by_name
+    return sum(by_name.values()), by_name, profile.breakdown(prof, n)
 
 
-def serve_recurrent(tag: str, cfg, params, shapes: dict, card: str,
-                    kernels: tuple, scan: str, state_keys: tuple,
-                    seed: int) -> dict:
-    """Phases 5d and 5e: a recurrent family's main path through the
-    continuum (edge 2 slots, cloud 16, max_len 2048, policy auto; 40
-    requests of 32 new tokens ramped over 8 rounds, prompts drawn from
-    ``SCAN_PROMPTS`` and four of ``LONG_PROMPT``), then one cloud
-    endpoint's prefill and decode step times and busy share.  Fails
-    unless every request is served with 32 tokens, each of ``kernels``
-    launched and nothing else did (no plain version, no other kernel),
-    and ``scan`` launched once a layer a prefill call.  ``state_keys``
-    are the cache leaves of the recurrent state."""
+def serve_two_tier(tag: str, cfg, params, shapes: dict, card: str,
+                   kernels: tuple, per_round: tuple, prompts: tuple,
+                   max_len: int, seed: int, long_rids=(), scan=None,
+                   state_keys: tuple = ()) -> dict:
+    """Phases 5d, 5e, 5j (a) and 5k: one model's main path through the
+    continuum (edge 2 slots, cloud 16, ``max_len``, policy auto;
+    ``per_round`` requests of 32 new tokens a round, prompts drawn from
+    ``prompts``, the requests numbered in ``long_rids`` of
+    ``LONG_PROMPT``), then one cloud endpoint's 512-token prefill and
+    16-row decode step: wall, device time, busy share, the top kernels
+    and the device time by category.  Fails unless every request is
+    served with 32 tokens, each of ``kernels`` launched and nothing else
+    did (no plain version, no other kernel), and ``scan``, given,
+    launched once a layer a prefill call.  ``state_keys`` are the cache
+    leaves of a recurrent state."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.platform import (AutoscalingPolicy, Continuum,
                                       FunctionSpec, Request, TierConfig)
-    max_len, max_new = RECURRENT_MAX_LEN, 32
+    max_new = 32
     cc = Continuum(edge=TierConfig(slots=2, max_len=max_len),
                    cloud=TierConfig(slots=16, max_len=max_len,
                                     extra_latency_s=0.02),
@@ -1075,8 +1155,6 @@ def serve_recurrent(tag: str, cfg, params, shapes: dict, card: str,
     cc.deploy(FunctionSpec(name=tag, arch=cfg.name,
                            autoscaling=AutoscalingPolicy()), cfg, params)
     rng = np.random.default_rng(seed)
-    per_round = (2, 3, 4, 5, 6, 6, 7, 7)                # 40 requests
-    long_rids = {3, 12, 22, 33}                         # 1024-token prompts
     calls = {"prefill": 0, "decode": 0}
     reqs = []
     ops.reset_launches()
@@ -1086,7 +1164,7 @@ def serve_recurrent(tag: str, cfg, params, shapes: dict, card: str,
         for rnd, n in enumerate(per_round):
             for _ in range(n):
                 L = (LONG_PROMPT if len(reqs) in long_rids
-                     else int(rng.choice(SCAN_PROMPTS)))
+                     else int(rng.choice(prompts)))
                 toks = rng.integers(0, cfg.vocab_size, L).astype(np.int32)
                 req = Request(rid=len(reqs), tokens=toks, max_new=max_new)
                 reqs.append(req)
@@ -1115,7 +1193,8 @@ def serve_recurrent(tag: str, cfg, params, shapes: dict, card: str,
     if any(n for k, n in launches.items() if k not in kernels):
         raise RuntimeError(f"{tag} path ran a plain version or another "
                            f"kernel: {launches}")
-    if launches[scan] != cfg.num_layers * calls["prefill"]:
+    if scan is not None and launches[scan] != (cfg.num_layers
+                                               * calls["prefill"]):
         raise RuntimeError(f"{tag}: {launches[scan]} {KERNEL_TAGS[scan]} "
                            f"launches for {calls['prefill']} prefill calls")
     tokens = len(reqs) * max_new
@@ -1139,7 +1218,7 @@ def serve_recurrent(tag: str, cfg, params, shapes: dict, card: str,
     ep = cc.tiers[-1].endpoints[tag]
     state = sum(ep._row_init[k].numel() * ep._row_init[k].element_size()
                 for k in state_keys)
-    for L in (512, LONG_PROMPT + max_new):
+    for L in (512, (LONG_PROMPT if long_rids else 512) + max_new):
         row = ep.cache_nbytes_per_row(L)
         log(f"[{tag}] bytes per row at position {L}: {row:.0f} (KV "
             f"{row - state:.0f}, recurrent state {state})")
@@ -1157,11 +1236,11 @@ def serve_recurrent(tag: str, cfg, params, shapes: dict, card: str,
     prefill()                                           # warm-up
     prefill_ms = _wall_ms(prefill, 5)
     prefill_dev = _device_ms(prefill, 3)
-    prompts = {s0: probe}
+    resident = {s0: probe}
     while ep.active < ep.slots:
-        prompts[ep.try_claim()] = rng.integers(
-            0, cfg.vocab_size, int(rng.choice(SCAN_PROMPTS))).astype(np.int32)
-    toks = ep.prefill_batch(prompts)
+        resident[ep.try_claim()] = rng.integers(
+            0, cfg.vocab_size, int(rng.choice(prompts))).astype(np.int32)
+    toks = ep.prefill_batch(resident)
 
     def step():
         nonlocal toks
@@ -1171,9 +1250,10 @@ def serve_recurrent(tag: str, cfg, params, shapes: dict, card: str,
         step()                                          # warm-up
     decode_ms = _wall_ms(step, 8)
     decode_dev = _device_ms(step, 8)
-    for s in list(prompts):
+    for s in list(resident):
         ep.release(s)
-    for what, wall, (dev, by_name) in (
+    summary = {}
+    for what, wall, (dev, by_name, split) in (
             ("prefill of one 512-token prompt", prefill_ms, prefill_dev),
             (f"decode step of {ep.slots} rows", decode_ms, decode_dev)):
         log(f"[{tag}] cloud endpoint, {what}: {wall:.3f} ms wall (median), "
@@ -1181,7 +1261,12 @@ def serve_recurrent(tag: str, cfg, params, shapes: dict, card: str,
             f"{100 * dev / wall:.1f}% ({card})")
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"[{tag}]   {ms:8.4f} ms a call  {name[:90]}")
-        if what.startswith("prefill"):
+        log(f"[{tag}]   device ms a call by category: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()))
+        summary[what.split()[0]] = {"wall_ms": wall, "device_ms": dev,
+                                    "busy_share": dev / wall,
+                                    "by_category_ms": split}
+        if what.startswith("prefill") and scan is not None:
             # the scan kernel's own share, in the top eight or not
             own = sum(ms for name, ms in by_name.items()
                       if f"{scan}_kernel" in name)
@@ -1191,6 +1276,7 @@ def serve_recurrent(tag: str, cfg, params, shapes: dict, card: str,
             log(f"[{tag}]   {KERNEL_TAGS[scan]} {scan} alone: {own:.4f} ms "
                 f"a call, {100 * own / dev:.1f}% of the prefill's device "
                 f"time")
+    log(f"[{tag}] cloud endpoint summary: {json.dumps(summary)}")
     return launches
 
 
@@ -1255,7 +1341,7 @@ def _step_device(ep, prompts: dict, card: str, tag: str, label: str):
     for _ in range(3):
         step()
     wall = _wall_ms(step, 8)
-    dev, by_name = _device_ms(step, 8)
+    dev = _device_ms(step, 8)[0]
     for s in list(prompts):
         ep.release(s)
     log(f"[{tag}] {label}: decode step of {len(prompts)} rows {wall:.3f} ms "
@@ -1856,10 +1942,11 @@ def serve_hymba(cfg, params, shapes: dict, card: str) -> dict:
         f"head_dim={cfg.head_dim}, d_ff={cfg.d_ff}, "
         f"ssm I={cfg.ssm_d_inner} N={cfg.ssm_state}, vocab={cfg.vocab_size}, "
         f"{nparams / 1e9:.3f}B params bf16")
-    launches = serve_recurrent(
+    launches = serve_two_tier(
         "hymba", cfg, params, shapes, card,
-        ("flash_attention", "decode_attention", "ssd_scan"), "ssd_scan",
-        ("h", "conv"), seed=11)
+        ("flash_attention", "decode_attention", "ssd_scan"),
+        RECURRENT_ROUNDS, SCAN_PROMPTS, RECURRENT_MAX_LEN, 11,
+        RECURRENT_LONG_RIDS, "ssd_scan", ("h", "conv"))
     widths = {k[1][1] for k in shapes["K2"]}
     if widths != {cfg.sliding_window, RECURRENT_MAX_LEN}:
         raise RuntimeError(f"hymba: K2 read caches of widths {widths}")
@@ -1874,9 +1961,61 @@ def serve_rwkv6(cfg, params, shapes: dict, card: str) -> dict:
         f"d={cfg.d_model}, {cfg.num_rwkv_heads} heads of "
         f"{cfg.rwkv_head_dim}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}, "
         f"{nparams / 1e9:.3f}B params bf16")
-    return serve_recurrent("rwkv6", cfg, params, shapes, card,
-                           ("rwkv6_scan",), "rwkv6_scan",
-                           ("tm_x", "tm_s", "cm_x"), seed=13)
+    return serve_two_tier("rwkv6", cfg, params, shapes, card,
+                          ("rwkv6_scan",), RECURRENT_ROUNDS, SCAN_PROMPTS,
+                          RECURRENT_MAX_LEN, 13, RECURRENT_LONG_RIDS,
+                          "rwkv6_scan", ("tm_x", "tm_s", "cm_x"))
+
+
+# ---------------------------------------------------------------- 5j, 5k
+
+# the prompt lengths of phases 5j and 5k
+MOE_PROMPTS = (64, 128, 256, 384, 512)
+
+
+def _describe(tag: str, cfg, params) -> None:
+    nparams = sum(p.numel() for p in params.values())
+    moe = (f", {cfg.num_experts} experts top-{cfg.top_k} of d_ff "
+           f"{cfg.moe_d_ff} + {cfg.num_shared_experts} shared "
+           f"({cfg.shared_d_ff}), {cfg.active_param_count() / 1e9:.3f}B "
+           f"active a token" if cfg.family == "moe" else "")
+    log(f"[{tag}] {cfg.name} full width: {cfg.num_layers} layers, "
+        f"d={cfg.d_model}, heads={cfg.num_heads}/{cfg.num_kv_heads}, "
+        f"head_dim={cfg.head_dim}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}"
+        f"{moe}, {nparams:,} params bf16 ({2 * nparams / 1e9:.2f} GB)")
+
+
+def serve_moe(cfg, params, card: str) -> tuple:
+    """Phase 5j: full-width qwen2-moe-a2.7b.  (a) the 2-tier continuum
+    (edge 2 slots, cloud 16, max_len 1024, auto), 40 requests of 32 new
+    tokens, prompts from ``MOE_PROMPTS``, K1 and K2 alone; (c) its cloud
+    endpoint's 512-token prefill and 16-row decode step, device time by
+    category (attention kernels, routed expert products, shared experts,
+    routing / dispatch / combine glue, the rest); (b) paged == dense ids
+    at every step over one fixed schedule.  Returns (the shapes of K1,
+    K2 from (a) and K3 from (b), their launches)."""
+    _describe("qwen2-moe", cfg, params)
+    shapes: dict = {}
+    launches = serve_two_tier(
+        "qwen2-moe", cfg, params, shapes, card,
+        ("flash_attention", "decode_attention"), RECURRENT_ROUNDS,
+        MOE_PROMPTS, 1024, 17)
+    paged_shapes: dict = {}
+    paged = paged_vs_dense(cfg, params, card, paged_shapes, "qwen2-moe")
+    shapes["K3"] = paged_shapes["K3"]
+    launches["paged_decode_attention"] = paged["paged_decode_attention"]
+    return shapes, launches
+
+
+def serve_qwen25(cfg, params, card: str, shapes: dict) -> dict:
+    """Phase 5k: full-width qwen2.5-14b (40 query heads over 8 kv heads at
+    head_dim 128), 16 requests through 5j's 2-tier continuum, the same
+    checks and the same cloud endpoint times."""
+    _describe("qwen2.5", cfg, params)
+    return serve_two_tier(
+        "qwen2.5", cfg, params, shapes, card,
+        ("flash_attention", "decode_attention"), (1, 1, 2, 2, 2, 2, 3, 3),
+        MOE_PROMPTS, 1024, 19)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2033,6 +2172,69 @@ def _k2_row(key, launches, gen, flush, prompts, window=None):
                  + ("" if window is None else f" window={window}")}, fill
 
 
+def _k3_row(key, launches, gen, flush, fill) -> dict:
+    """K3 timed at one (q, pool, tables) shape of a paged decode step,
+    row b holding ``fill[b]`` tokens over shuffled pages of a pool with
+    spare pages, bitwise against K2 on the gathered view, beside its
+    bound, plain version and two page gathers + SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    (qs, ks, ts) = key
+    B, Hq, D = qs
+    page, Hkv, ppr = ks[1], ks[2], ts[1]
+    q, kpg, vpg, tab, qp, kvp = paged_inputs(B, ppr, page, Hq, Hkv, D,
+                                             torch.bfloat16, gen, fill=fill)
+    got = ops.paged_decode_attention(q, kpg, vpg, tab, qp, kvp)
+    C = _launched_split("paged_decode_attention")[0]
+    want = ref.paged_decode_attention(q, kpg, vpg, tab, qp, kvp)
+    err = check_close("K3 timing inputs", got, want, "bfloat16")
+    kd, vd, kpd = gathered(kpg, vpg, tab, kvp)
+    if not torch.equal(got, ops.decode_attention(q, kd.contiguous(),
+                                                 vd.contiguous(), qp,
+                                                 kpd.contiguous())):
+        raise RuntimeError("K3 timing inputs: not bitwise equal to K2")
+    flat = tab.reshape(-1).long()
+    mask = ((kpd >= 0) & (kpd <= qp[:, None]))[:, None, None, :]
+    qh = q[:, :, None].contiguous()
+
+    def gather_sdpa():
+        # two page gathers and one SDPA: no single PyTorch call computes
+        # attention through a page table
+        kg = kpg.index_select(0, flat).view(B, ppr * page, Hkv, D)
+        vg = vpg.index_select(0, flat).view(B, ppr * page, Hkv, D)
+        return F.scaled_dot_product_attention(
+            qh, kg.transpose(1, 2), vg.transpose(1, 2), attn_mask=mask,
+            **({"enable_gqa": True} if Hq != Hkv else {}))
+
+    lib_out = gather_sdpa()[:, :, 0]
+    check_close("K3 yardstick", lib_out, want, "bfloat16")
+    def kern():
+        return ops.paged_decode_attention(q, kpg, vpg, tab, qp, kvp)
+
+    ms = _time_ms(kern, flush)
+    plain = _time_ms(lambda: ref.paged_decode_attention(q, kpg, vpg, tab,
+                                                        qp, kvp), flush)
+    lib = _time_ms(gather_sdpa, flush)
+    valid = int(((kpd >= 0) & (kpd <= qp[:, None])).sum().item())
+    nbytes = (q.numel() + got.numel()) * 2 + valid * Hkv * D * 2 * 2 \
+        + (qp.numel() + kpd.numel() + tab.numel()) * 4
+    flops = 4.0 * valid * Hq * D
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return {
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:132",
+        "launches": launches["paged_decode_attention"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib, **_split_times(kern, flush, gather_sdpa),
+        "library": "2x index_select + scaled_dot_product_attention",
+        "cluster": C,
+        "shape": f"B={B} ppr={ppr} page={page} Hq={Hq} Hkv={Hkv} D={D} "
+                 f"bf16 live_slots={valid} pool_pages={kpg.shape[0]}"}
+
+
 def _k5_row(key, launches, gen, flush) -> dict:
     """K5 timed at one (a, b) shape of a prefill, beside its bound and
     its plain version; no single PyTorch call computes the recurrence."""
@@ -2107,6 +2309,12 @@ def _stablelm_prompts(n, gen):
     return torch.randint(64, 513, (n,), generator=gen)
 
 
+def _moe_prompts(n, gen):
+    import torch
+    lens = torch.tensor(MOE_PROMPTS)
+    return lens[torch.randint(0, len(lens), (n,), generator=gen)]
+
+
 def _scan_prompts(n, gen):
     import torch
     lens = torch.tensor(SCAN_PROMPTS)
@@ -2115,11 +2323,14 @@ def _scan_prompts(n, gen):
 
 def timing(shapes: dict, launches: dict, hy_shapes: dict,
            hy_launches: dict, window: int, rw_shapes: dict,
-           rw_launches: dict) -> tuple:
+           rw_launches: dict, moe_shapes: dict, moe_launches: dict,
+           qw_shapes: dict, qw_launches: dict) -> tuple:
     """Phase 6.  Returns (the kernels' rows: K1, K2 at stablelm's main
     path, K3 at the paged tier's, K4 at rwkv6's, K5 at hymba's; K1, K2
     and K5 at hymba's shapes; K4 at one 512-token prompt; K1 at the
-    smaller prefill buckets and K2 at the edge's B = 2)."""
+    smaller prefill buckets and K2 at the edge's B = 2; K1, K2 and K3 at
+    qwen2-moe-a2.7b's shapes, K2 at its edge's B = 2 too, and K1 and K2
+    at qwen2.5-14b's cloud shapes)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -2137,60 +2348,8 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
 
     # K3 at the paged cloud tier's decode batch: the same live slots as
     # K2's row (same fill), pages shuffled over a pool with spare pages
-    (qs, ks, ts) = max(shapes["K3"], key=lambda s: (s[0][0],
-                                                    shapes["K3"][s]))
-    B, Hq, D = qs
-    page, Hkv, ppr = ks[1], ks[2], ts[1]
-    q, kpg, vpg, tab, qp, kvp = paged_inputs(B, ppr, page, Hq, Hkv, D,
-                                             torch.bfloat16, gen, fill=fill)
-    got = ops.paged_decode_attention(q, kpg, vpg, tab, qp, kvp)
-    C = _launched_split("paged_decode_attention")[0]
-    want = ref.paged_decode_attention(q, kpg, vpg, tab, qp, kvp)
-    err = check_close("K3 timing inputs", got, want, "bfloat16")
-    kd, vd, kpd = gathered(kpg, vpg, tab, kvp)
-    if not torch.equal(got, ops.decode_attention(q, kd.contiguous(),
-                                                 vd.contiguous(), qp,
-                                                 kpd.contiguous())):
-        raise RuntimeError("K3 timing inputs: not bitwise equal to K2")
-    flat = tab.reshape(-1).long()
-    mask = ((kpd >= 0) & (kpd <= qp[:, None]))[:, None, None, :]
-    qh = q[:, :, None].contiguous()
-
-    def gather_sdpa():
-        # two page gathers and one SDPA: no single PyTorch call computes
-        # attention through a page table
-        kg = kpg.index_select(0, flat).view(B, ppr * page, Hkv, D)
-        vg = vpg.index_select(0, flat).view(B, ppr * page, Hkv, D)
-        return F.scaled_dot_product_attention(
-            qh, kg.transpose(1, 2), vg.transpose(1, 2), attn_mask=mask,
-            **({"enable_gqa": True} if Hq != Hkv else {}))
-
-    lib_out = gather_sdpa()[:, :, 0]
-    check_close("K3 yardstick", lib_out, want, "bfloat16")
-    def kern():
-        return ops.paged_decode_attention(q, kpg, vpg, tab, qp, kvp)
-
-    ms = _time_ms(kern, flush)
-    plain = _time_ms(lambda: ref.paged_decode_attention(q, kpg, vpg, tab,
-                                                        qp, kvp), flush)
-    lib = _time_ms(gather_sdpa, flush)
-    valid = int(((kpd >= 0) & (kpd <= qp[:, None])).sum().item())
-    nbytes = (q.numel() + got.numel()) * 2 + valid * Hkv * D * 2 * 2 \
-        + (qp.numel() + kpd.numel() + tab.numel()) * 4
-    flops = 4.0 * valid * Hq * D
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    rows.append({
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:132",
-        "launches": launches["paged_decode_attention"], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib, **_split_times(kern, flush, gather_sdpa),
-        "library": "2x index_select + scaled_dot_product_attention",
-        "cluster": C,
-        "shape": f"B={B} ppr={ppr} page={page} Hq={Hq} Hkv={Hkv} D={D} "
-                 f"bf16 live_slots={valid} pool_pages={kpg.shape[0]}"})
+    rows.append(_k3_row(max(shapes["K3"], key=lambda s: (
+        s[0][0], shapes["K3"][s])), launches, gen, flush, fill))
     # K4 at the shape the rwkv6 main path launched it at most
     k4_key = max(rw_shapes["K4"], key=lambda s: (rw_shapes["K4"][s],
                                                  s[0][1]))
@@ -2240,8 +2399,30 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
                              if s[1][1] == window), key=lambda s: (
         s[0][0], -hy_shapes["K2"][s])), hy_launches, gen, flush,
         _scan_prompts, window)[0])
+    # K1, K2 and K3 at qwen2-moe-a2.7b's shapes (phase 5j): the largest
+    # prefill bucket, the cloud's decode batch, the paged cloud's step
+    # over the same live slots, and the edge's decode batch
+    moe_rows = [_k1_row(max(moe_shapes["K1"], key=lambda s: (
+        s[0][1], moe_shapes["K1"][s])), moe_launches, gen, flush)]
+    row, fill = _k2_row(max(moe_shapes["K2"], key=lambda s: (
+        s[0][0], moe_shapes["K2"][s])), moe_launches, gen, flush,
+        _moe_prompts)
+    moe_rows += [row, _k3_row(max(moe_shapes["K3"], key=lambda s: (
+        s[0][0], moe_shapes["K3"][s])), moe_launches, gen, flush, fill)]
+    moe_rows.append(_k2_row(min(moe_shapes["K2"], key=lambda s: (
+        s[0][0], -moe_shapes["K2"][s])), moe_launches, gen, flush,
+        _moe_prompts)[0])
+    # and K1, K2 at qwen2.5-14b's (phase 5k: 40 query heads over 8, G = 5):
+    # its largest prefill, and the cloud endpoint's 16-row step that 5k
+    # times (the continuum may have routed no request to the cloud)
+    k1 = max(qw_shapes["K1"], key=lambda s: (s[0][1], qw_shapes["K1"][s]))
+    moe_rows.append(_k1_row(k1, qw_launches, gen, flush))
+    (_, _, Hq, D), (_, _, Hkv, _) = k1
+    moe_rows.append(_k2_row(((16, Hq, D), (16, 1024, Hkv, D)), qw_launches,
+                            gen, flush, _moe_prompts)[0])
     for tag, rs in (("time", rows), ("time-hymba", hy_rows),
-                    ("time-rwkv6", rw_rows), ("time-more", more)):
+                    ("time-rwkv6", rw_rows), ("time-more", more),
+                    ("time-moe", moe_rows)):
         for r in rs:
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
@@ -2253,7 +2434,7 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
                 f"{r['host_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
                 f"{lib}, launches {r['launches']}{cl}")
-    return rows, hy_rows, rw_rows, more
+    return rows, hy_rows, rw_rows, more, moe_rows
 
 
 # ------------------------------------------------------- --baseline DIR
@@ -2622,10 +2803,15 @@ def main() -> int:
     smoke_model_vs_cpu("hymba-1.5b", ("flash_attention", "decode_attention",
                                       "ssd_scan"))
     smoke_model_vs_cpu("rwkv6-7b", ("rwkv6_scan",))
+    for arch in NEW_SMOKE_ARCHS:                       # phase 4d
+        smoke_model_vs_cpu(arch)
+    smoke_model_vs_cpu("qwen2-moe-a2.7b", ("flash_attention",
+                                           "paged_decode_attention"),
+                       paged=True)
     cfg, params = full_model("stablelm-1.6b")
     shapes: dict = {}
     launches = serve_full(cfg, params, shapes)
-    paged_vs_dense(cfg, params, card)
+    paged_vs_dense(cfg, params, card, {}, "5b")
     paged_shapes: dict = {}
     launches.update({k: v for k, v in serve_paged(cfg, params,
                                                   paged_shapes).items()
@@ -2637,33 +2823,46 @@ def main() -> int:
     faas_bodies(card)
     sim_sweep()
     del params
-    torch.cuda.empty_cache()
+    free_card("stablelm-1.6b")
     hcfg, hparams = full_model("hymba-1.5b")
     hy_shapes: dict = {}
     hy_launches = serve_hymba(hcfg, hparams, hy_shapes, card)
     for k, n in migration_hymba(hcfg, hparams, card).items():
         mig_launches[k] = mig_launches.get(k, 0) + n
     del hparams
-    torch.cuda.empty_cache()
+    free_card("hymba-1.5b")
     rcfg, rparams = full_model("rwkv6-7b")
     rw_shapes: dict = {}
     rw_launches = serve_rwkv6(rcfg, rparams, rw_shapes, card)
     for k, n in migration_rwkv6(rcfg, rparams, card).items():
         mig_launches[k] = mig_launches.get(k, 0) + n
     del rparams
-    torch.cuda.empty_cache()
-    rows, hy_rows, rw_rows, more = timing(shapes, launches, hy_shapes,
-                                          hy_launches, hcfg.sliding_window,
-                                          rw_shapes, rw_launches)
+    free_card("rwkv6-7b")
+    mcfg, mparams = full_model("qwen2-moe-a2.7b")
+    moe_shapes, moe_launches = serve_moe(mcfg, mparams, card)
+    del mparams
+    free_card("qwen2-moe-a2.7b")
+    qcfg, qparams = full_model("qwen2.5-14b")
+    qw_shapes: dict = {}
+    qwen_launches = serve_qwen25(qcfg, qparams, card, qw_shapes)
+    del qparams
+    free_card("qwen2.5-14b")
+    rows, hy_rows, rw_rows, more, moe_rows = timing(
+        shapes, launches, hy_shapes, hy_launches, hcfg.sliding_window,
+        rw_shapes, rw_launches, moe_shapes, moe_launches, qw_shapes,
+        qwen_launches)
     for row in rows:
         if row["name"] in ("flash_attention", "decode_attention",
                            "paged_decode_attention"):
             row["launches_5f"] = chain_launches[row["name"]]
             row["launches_5i"] = sketch_launches[row["name"]]
+            row["launches_5j"] = moe_launches[row["name"]]
+            row["launches_5k"] = qwen_launches.get(row["name"], 0)
         row["launches_5h"] = mig_launches.get(row["name"], 0)
     log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")
     log(f"[time-rwkv6] {json.dumps({'k4_rwkv6': rw_rows})}")
     log(f"[time-more] {json.dumps({'buckets_and_edge': more})}")
+    log(f"[time-moe] {json.dumps({'kernels_at_5j_5k_shapes': moe_rows})}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,9 +1,11 @@
 """Architecture registry of the port.
 
-The dense stablelm-1.6b, the hybrid hymba-1.5b and the attention-free
-rwkv6-7b are ported.  Every other architecture of the reference
-registry raises ``NotImplementedError`` naming the ROADMAP item that
-will port its family.
+Eight of the reference's ten architectures are ported: the dense
+stablelm-1.6b, qwen2.5-14b, internvl2-1b (vision prefix) and
+musicgen-medium (audio tokens), the MoE qwen2-moe-a2.7b and
+mixtral-8x7b, the hybrid hymba-1.5b and the attention-free rwkv6-7b.
+The other two raise ``NotImplementedError`` naming the ROADMAP item
+that will port them.
 """
 
 from __future__ import annotations
@@ -17,17 +19,17 @@ _MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
     "hymba-1.5b": "hymba_1_5b",
     "rwkv6-7b": "rwkv6_7b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "internvl2-1b": "internvl2_1b",
+    "musicgen-medium": "musicgen_medium",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "mixtral-8x7b": "mixtral_8x7b",
 }
 
 #: the reference's other architectures, by the ROADMAP item that ports them
 _LATER = {
-    "qwen2.5-14b": "the dense-family follow-up (qkv bias)",
-    "llama3-405b": "the tensor-parallel endpoint",
-    "nemotron-4-340b": "the tensor-parallel endpoint",
-    "internvl2-1b": "the dense-family follow-up (vision prefix)",
-    "musicgen-medium": "the dense-family follow-up (audio tokens)",
-    "qwen2-moe-a2.7b": "MoE",
-    "mixtral-8x7b": "MoE",
+    "llama3-405b": "item 6, the tensor-parallel endpoint",
+    "nemotron-4-340b": "item 6, the tensor-parallel endpoint",
 }
 
 ARCHS: Tuple[str, ...] = tuple(_MODULES)

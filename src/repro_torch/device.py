@@ -26,3 +26,16 @@ def resolve(device: DeviceLike = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def check_fits(cfg, device: torch.device) -> None:
+    """Raise when ``cfg``'s parameters alone outgrow the card's memory
+    (mixtral-8x7b at full width is 93.4 GB in bf16; the card has 80)."""
+    if device.type != "cuda":
+        return
+    need = cfg.param_count() * torch.finfo(cfg.param_dtype).bits // 8
+    have = torch.cuda.get_device_properties(device).total_memory
+    if need > have:
+        raise SystemExit(
+            f"{cfg.name}: {need / 1e9:.2f} GB of parameters do not fit the "
+            f"card's {have / 1e9:.2f} GB; serve its smoke config instead")

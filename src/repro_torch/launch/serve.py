@@ -16,6 +16,10 @@ cloud chain, waterfall on); ``--net-aware`` is ``--policy auto+net``.
 ticks, which is what gives ``+migrate`` rows to move.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full --rounds 20
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+        --arch qwen2-moe-a2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch mixtral-8x7b
     PYTHONPATH=src python -m repro_torch.launch.serve --device-slots 2 \
         --net-aware
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.device import resolve
+from repro_torch.device import check_fits, resolve
 from repro_torch.models import model_zoo
 from repro_torch.platform import (AutoscalingPolicy, Continuum,
                                   FunctionSpec, LinkSpec, OffloadConfig,
@@ -76,6 +80,7 @@ def main():
     device = resolve(args.device)
     cfg = (configs.get_config(args.arch) if args.full
            else configs.get_smoke_config(args.arch))
+    check_fits(cfg, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model_zoo.init(cfg, gen)
 

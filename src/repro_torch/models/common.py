@@ -53,7 +53,22 @@ class ModelConfig:
     # RWKV6
     rwkv_head_dim: int = 64
 
-    activation: str = "swiglu"       # the only one ported
+    activation: str = "swiglu"       # swiglu | relu2 | gelu
+
+    # MoE
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0                # routed-expert hidden size
+    shared_d_ff: int = 0             # shared-expert hidden size
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+    # modality frontend: a stub, as in the reference (precomputed patch
+    # embeddings arrive as inputs; audio is token ids over the codebook)
+    frontend: Optional[str] = None   # None | "vision" | "audio"
+    num_patches: int = 256           # vision prefix length
+
     norm_eps: float = 1e-5
     norm_type: str = "rmsnorm"       # rmsnorm | layernorm
     tie_embeddings: bool = False
@@ -74,6 +89,17 @@ class ModelConfig:
         from repro_torch.models import model_zoo
         return sum(int(math.prod(s.shape))
                    for s in model_zoo.param_table(self).values())
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: shared + top_k experts)."""
+        from repro_torch.models import model_zoo
+        total = 0
+        for path, spec in model_zoo.param_table(self).items():
+            n = int(math.prod(spec.shape))
+            if "experts/" in path and self.num_experts > 0:
+                n = n * self.top_k // self.num_experts
+            total += n
+        return total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,7 +147,8 @@ def _init_leaf(spec: ParamSpec, dtype: torch.dtype,
     std = spec.scale / math.sqrt(fan_in)
     w = torch.randn(spec.shape, generator=generator, device=dev,
                     dtype=torch.float32)
-    return (w * std).to(dtype)
+    # in place: a full-width expert stack is 16.6 GB in float32
+    return w.mul_(std).to(dtype)
 
 
 def init_params(table: Mapping[str, ParamSpec], dtype: torch.dtype,
@@ -184,14 +211,20 @@ def norm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 def activate(cfg: ModelConfig, gate: torch.Tensor,
              up: Optional[torch.Tensor]) -> torch.Tensor:
-    """MLP nonlinearity: swiglu, silu(gate)*up.  The other activations
-    belong to configurations this package does not port yet."""
-    if cfg.activation != "swiglu":
-        raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported; only swiglu is")
-    if up is None:
-        raise ValueError("swiglu activation requires the `up` projection")
-    return F.silu(gate) * up
+    """MLP nonlinearity. swiglu: silu(gate)*up; relu2: relu(gate)^2
+    (nemotron); gelu: the tanh approximation, ``jax.nn.gelu``'s default
+    (torch's default is the erf form)."""
+    if cfg.activation == "swiglu":
+        if up is None:
+            raise ValueError("swiglu activation requires the `up` "
+                             "projection")
+        return F.silu(gate) * up
+    if cfg.activation == "relu2":
+        r = F.relu(gate)
+        return r * r
+    if cfg.activation == "gelu":
+        return F.gelu(gate, approximate="tanh")
+    raise ValueError(cfg.activation)
 
 
 def rope_frequencies(head_dim: int, theta: float,

@@ -10,10 +10,12 @@ The counterpart of ``repro/models/model_zoo.py``::
     init_cache(cfg, batch, max_len, device) -> cache
     init_paged_pool(cfg, total_pages, page_size, device) -> page pool
 
-``dense``, ``hymba`` and ``rwkv6`` are ported; the other families raise
-``NotImplementedError`` until their slice is.  Only ``dense`` has a
-paged pool: hymba's is not ported yet, and rwkv6 has no leaf to page
-(its state does not grow with the context).
+Every family of the reference is ported: ``dense``, ``moe``, ``hymba``
+and ``rwkv6``.  ``dense`` and ``moe`` page their KV cache alike (a
+sliding-window config smaller than the context still raises in
+``decode_step``: the reference keeps those rolling rows per slot).
+hymba's paged pool is not ported yet (ROADMAP item 4), and rwkv6 has no
+leaf to page (its state does not grow with the context).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.models import common, hymba, rwkv6, transformer
+from repro_torch.models import common, hymba, moe, rwkv6, transformer
 from repro_torch.models.common import ModelConfig, Params
 
 
@@ -37,6 +39,8 @@ class Family(NamedTuple):
 _FAMILIES = {
     "dense": Family(transformer.dense_layer, transformer.param_table,
                     transformer.init_cache, transformer.init_paged_pool),
+    "moe": Family(moe.moe_layer, moe.param_table, transformer.init_cache,
+                  transformer.init_paged_pool),
     "hymba": Family(hymba.hymba_layer, hymba.param_table, hymba.init_cache,
                     None),
     "rwkv6": Family(rwkv6.rwkv_layer, rwkv6.param_table, rwkv6.init_cache,
@@ -47,9 +51,8 @@ _FAMILIES = {
 def family(cfg: ModelConfig) -> Family:
     fam = _FAMILIES.get(cfg.family)
     if fam is None:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            f"queue 1); ported: {sorted(_FAMILIES)}")
+        raise ValueError(f"unknown model family {cfg.family!r}; the "
+                         f"families are {sorted(_FAMILIES)}")
     return fam
 
 
@@ -83,6 +86,7 @@ def init_paged_pool(cfg: ModelConfig, total_pages: int, page_size: int,
     if fn is None:
         raise NotImplementedError(
             f"the paged pool of the {cfg.family!r} family is not ported "
-            f"(ROADMAP.md, queue 1: the reference pages its global layers "
-            f"and keeps rolling-window rows and recurrent state per slot)")
+            f"(ROADMAP.md queue 1, item 4: the reference pages its global "
+            f"layers and keeps rolling-window rows and recurrent state per "
+            f"slot)")
     return fn(cfg, total_pages, page_size, device)

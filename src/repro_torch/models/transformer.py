@@ -267,12 +267,27 @@ def forward(cfg: ModelConfig, params: Params, embeds: torch.Tensor,
 def assemble_embeds(cfg: ModelConfig, params: Params,
                     batch: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token embeddings (B,S,d) + absolute positions (B,S) int32
-    (``batch["offset"]`` (B,) shifts each row's positions)."""
-    tokens = batch["tokens"]
-    emb = embed_tokens(params["embed"], tokens, cfg.compute_dtype)
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
+    """Token/frontend embeddings (B,S,d) + absolute positions (B,S) int32
+    over the whole stream (``batch["offset"]`` (B,) shifts each row's).
+
+    ``batch`` carries "tokens" (B,S) and, as in the reference,
+    optionally "embeds" (B,E,d), a precomputed stream appended after the
+    tokens, and "patches" (B,P,d), a vision prefix put in front of
+    everything (the modality encoder is a stub).  Audio is token ids over
+    the codebook: a plain LM.
+    """
+    emb = None
+    if "tokens" in batch:
+        emb = embed_tokens(params["embed"], batch["tokens"],
+                           cfg.compute_dtype)
+    if "embeds" in batch:
+        e = batch["embeds"].to(cfg.compute_dtype)
+        emb = e if emb is None else torch.cat([emb, e], dim=1)
+    if "patches" in batch:
+        pt = batch["patches"].to(cfg.compute_dtype)
+        emb = pt if emb is None else torch.cat([pt, emb], dim=1)
+    B, S = emb.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=emb.device)[None]
     offset = batch.get("offset")
     if offset is not None:
         positions = positions + offset[:, None].to(torch.int32)

@@ -29,7 +29,8 @@ each group runs at a power-of-two batch (the last real row repeated) on
 a fresh small dense cache whose real rows are then copied into the pool
 (into the claimed pages, when paged).  The dense family also pads each
 group to a power-of-two length; a recurrent family (hymba's SSM state,
-rwkv6's WKV state) threads its state through every token and is never
+rwkv6's WKV state) threads its state through every token, and the MoE
+family's expert capacity follows each row's length, so neither is ever
 length-padded.
 Decode masks inactive rows, so a retired row's cache (KV rows and
 recurrent state) stays bit for bit as it was while its neighbours
@@ -208,8 +209,10 @@ class Endpoint:
             cfg, 1, max_len, "meta" if self.paged else self.device)
         # Length padding is sound only for the dense family: causal
         # masking hides padded positions there, but recurrent state
-        # threads through every token.  It must also stay within the
-        # rolling window (padding must not wrap over live keys).
+        # threads through every token, and MoE expert capacity follows
+        # the row's length (padding tokens would compete for expert
+        # slots).  It must also stay within the rolling window (padding
+        # must not wrap over live keys).
         self._pad_len = cfg.family == "dense"
         self._len_cap = max_len
         if cfg.sliding_window is not None:

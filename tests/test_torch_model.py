@@ -143,7 +143,7 @@ def test_full_config_matches_reference():
 
 def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_configs.get_config("qwen2-moe-a2.7b")
+        t_configs.get_config("llama3-405b")
     with pytest.raises(ValueError):
         t_configs.get_config("no-such-arch")
 
