@@ -18,7 +18,9 @@ Phases, each raising on failure (the script then exits non-zero):
    heads, window 1024), and those of qwen2-moe-a2.7b (16/16 at head_dim
    128), qwen2.5-14b (40/8 at 128) and internvl2-1b (14/2 at 64) for K1
    at B=1 S=512 and K2 at B=16 T=1024 and the edge's B=2, K3 at B=16 with
-   64 pages a row of 16 for qwen2-moe; K1 also with kv positions out of
+   64 pages a row of 16 for qwen2-moe, and K3 at hymba's global layers
+   (B=16, 128 pages a row of 16, 25/5 heads, D=64, no window); K1 also
+   with kv positions out of
    slot order, with rows that see no key (exactly zero) and with a
    5-token prompt;
    K2 and K3 at shapes their launcher splits over clusters of 1, 2, 4
@@ -36,12 +38,16 @@ Phases, each raising on failure (the script then exits non-zero):
 4. the stablelm smoke model served on the card against the same model on
    the CPU through the plain versions (greedy ids must match, and the
    card's run must launch exactly the family's kernels);
-4b. the same for the hymba smoke model (K1, K2 and K5 on the card);
+4b. the same for the hymba smoke model (K1, K2 and K5 on the card), and
+   for the hymba and nemotron-4-340b smoke models on paged endpoints
+   whose claims register their prompts, the second prompt served again
+   as an exact prefix hit (hymba: K1, K2, K3 and K5; nemotron: K1, K3);
 4c. the same for the rwkv6 smoke model (K4 alone on the card);
 4d. the same for the smoke models of qwen2-moe-a2.7b, mixtral-8x7b
-   (window 16 over a 48-token context), qwen2.5-14b, internvl2-1b and
-   musicgen-medium (K1 and K2), and for qwen2-moe on paged endpoints
-   (K1 and K3);
+   (window 16 over a 48-token context), qwen2.5-14b, internvl2-1b,
+   musicgen-medium and nemotron-4-340b (K1 and K2), and for qwen2-moe on
+   paged endpoints (K1 and K3); llama3-405b's smoke model (head_dim 8)
+   must raise from the launcher on the card and launch nothing;
 5. the dense main path: full-width stablelm-1.6b (bf16, seeded random
    weights drawn on the card) served by ``repro_torch.platform.Continuum``
    over a 2-tier edge -> cloud continuum (edge 2 slots, cloud 16,
@@ -146,6 +152,32 @@ Phases, each raising on failure (the script then exits non-zero):
 5k. (after 5j, its weights freed) full-width qwen2.5-14b (bf16, 14.8 B
    parameters): 16 requests through 5j's continuum, the same checks and
    cloud endpoint times;
+5l. (after 5d and 5h (c), on 5d's weights) full-width hymba-1.5b on a
+   paged tier: its 3 global layers' KV in the page pool (K3), its 29
+   window layers' rolling rows and its SSM state per slot (K2).  (a)
+   5b's paged == dense schedule at max_len 2048, 24 prompts of 64..512
+   tokens and two of 1024 (the window rows wrap): the ids must agree at
+   every step, K1, K2, K3 and K5 launch and nothing else, and every
+   paged step launches K3 3 times and K2 29 times; (b) 5d's 2-tier
+   continuum with both tiers paged (page 16), 16 requests, three in four
+   drawn by Zipf(1.1) from 4 function prompts: every request served with
+   32 tokens, a prefix hit on some tier, the pools drained to their
+   registries; (c) 5h's case on two paged tiers of 16 slots: the migrated
+   ids equal the unmigrated ones, and the link carries the row's
+   ``PagedRow`` bytes (filled pages, window rows, SSM state) + 4 B a
+   token.  The ``kernels`` rows carry ``launches_5l``;
+5m. (after 5h, on phase 5's weights) the cost-priced chain
+   ``Topology.device_edge_cloud(cost_model=True, max_len=1024)``
+   resolved on the H100 SXM5 record: each tier's priced slots,
+   ``decode_step_ms``, rate, dominant roofline term and per-device bytes
+   are printed; full-width stablelm-1.6b serves it through
+   ``Continuum.from_topology`` with 5f's trace, ``"auto+net"`` and links,
+   the edge's (1, 2) and the cloud's (16, 16) meshes deployed unsharded
+   on the one card with the reference's warning.  Fails unless served +
+   rejected == submitted, K1 and K2 launched and nothing else did, and
+   sim R_t == live R_t on every scrape; then prints the device tier's
+   decode step device time at its priced slot count beside the priced
+   ``decode_step_ms``.  The K1-K3 rows carry ``launches_5m``;
 5g. the paper's four FaaS bodies (matmult n=256, image_proc 128,
    random_io 2^16, mixed 128) on the card, each against its CPU run on
    the same drawn tensors (1e-4 abs / 1e-4 rel), timed with CUDA events;
@@ -155,7 +187,9 @@ Phases, each raising on failure (the script then exits non-zero):
    L2 flushed between launches) beside its bound, its plain version and a
    yardstick of PyTorch library calls (the port never calls them), printed
    as one ``{"kernels": [...]}`` line (K1 and K2 at stablelm's shapes, K3
-   at the paged tier's, K4 at rwkv6's, K5 at hymba's).  Each row also
+   at the paged tier's, K4 at rwkv6's, K5 at hymba's, and K3 again at
+   hymba's paged global layers with its launches from 5l, ``"case"``
+   naming it).  Each row also
    gives the kernel's and the library call's time on the device alone
    (``device_ms``, ``library_device_ms``: the card kept busy while the
    host enqueues) and the host's time to enqueue the kernel
@@ -548,6 +582,7 @@ def parity_paged() -> None:
         ("hymba", 16, 64, 16, 25, 5, 64, 1024, None),
         ("edge", 2, 64, 16, 32, 32, 64, None, None),
         ("qwen2-moe", 16, 64, 16, 16, 16, 128, None, None),
+        ("hymba-glob", 16, 128, 16, 25, 5, 64, None, None),
     ]
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
@@ -707,11 +742,15 @@ def parity_rwkv() -> None:
 
 def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
                                              "decode_attention"),
-                       paged: bool = False) -> None:
+                       paged: bool = False, hit: bool = False) -> None:
     """The smoke model of ``arch`` on the card (kernels) and on the CPU
     (plain versions), same weights, same requests: greedy ids must match,
     and the card's run must have launched each of ``kernels`` and nothing
-    else.  ``paged``: both endpoints hold a page pool (page 16)."""
+    else.  ``paged``: both endpoints hold a page pool (page 16).  ``hit``
+    (paged): claims are sized from the requests, so the prompts register
+    in the prefix registry, and after the 24 steps the second prompt is
+    served again in a fresh claim, an exact hit (no prefill), and every
+    live row decodes 8 more steps."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -723,6 +762,8 @@ def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
     params_gpu = {k: v.cuda() for k, v in params_cpu.items()}
     rng = np.random.default_rng(0)
     kw = dict(paged=True, page_size=16) if paged else {}
+    if hit:
+        kw["total_pages"] = 24              # room for the registry's pages
     eps = {dev: Endpoint(cfg, p, slots=4, max_len=48, device=dev, **kw)
            for dev, p in (("cpu", params_cpu), ("cuda", params_gpu))}
     prompts = {i: rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32)
@@ -730,7 +771,8 @@ def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
     streams = {}
     for dev, ep in eps.items():
         ops.reset_launches()
-        slots = [ep.try_claim() for _ in prompts]
+        slots = [ep.try_claim(tokens=prompts[i], max_new=25) if hit
+                 else ep.try_claim() for i in prompts]
         first = ep.prefill_batch({s: prompts[i] for i, s in enumerate(slots)})
         toks = dict(first)
         out = {s: [t] for s, t in toks.items()}
@@ -738,6 +780,21 @@ def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
             toks = ep.decode_all(toks)
             for s, t in toks.items():
                 out[s].append(t)
+        if hit:
+            ep.release(slots[1])
+            again = ep.try_claim(tokens=prompts[1], max_new=25)
+            toks[again] = ep.prefill_batch({again: prompts[1]})[again]
+            out["again"] = [toks[again]]
+            for _ in range(8):
+                toks = ep.decode_all(toks)
+                out["again"].append(toks[again])
+                for s, t in toks.items():
+                    if s != again:
+                        out[s].append(t)
+            if ep.prefill_hit_tokens != len(prompts[1]):
+                raise RuntimeError(f"{arch} smoke model on {dev}: "
+                                   f"{ep.prefill_hit_tokens} prefill hit "
+                                   f"tokens, not the repeated prompt's")
         streams[dev] = out
     launched = dict(ops.launches)                 # of the card's run
     if streams["cpu"] != streams["cuda"]:
@@ -746,7 +803,8 @@ def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
     if any(launched[k] <= 0 for k in kernels) or any(
             n for k, n in launched.items() if k not in kernels):
         raise RuntimeError(f"{arch} smoke model on the card: {launched}")
-    log(f"[model] {arch}{' paged' if paged else ''} smoke model on cuda "
+    log(f"[model] {arch}{' paged' if paged else ''}"
+        f"{' with an exact prefix hit' if hit else ''} smoke model on cuda "
         f"== cpu plain path: "
         f"{sum(len(v) for v in streams['cuda'].values())} tokens identical; "
         f"card launches { {k: launched[k] for k in kernels} }")
@@ -902,25 +960,37 @@ def free_card(what: str) -> None:
         f"allocated on the card")
 
 
-def paged_vs_dense(cfg, params, card: str, shapes: dict, tag: str) -> dict:
-    """Phases 5b and 5j (b): a dense and a paged endpoint (page 16, no
-    prefix cache) over one set of weights, driven through one fixed admit
-    / decode / retire schedule; the token ids must agree at every step,
-    and K1, K2 (dense) and K3 (paged) must launch and nothing else.
-    Records the kernels' shapes in ``shapes``; returns the launches."""
+def paged_vs_dense(cfg, params, card: str, shapes: dict, tag: str,
+                   max_len: int = 1024, lengths=None,
+                   want=("flash_attention", "decode_attention",
+                         "paged_decode_attention")) -> dict:
+    """Phases 5b, 5j (b) and 5l (a): a dense and a paged endpoint (page
+    16, no prefix cache) over one set of weights, driven through one fixed
+    admit / decode / retire schedule of 24 requests (prompts of
+    ``lengths``, default 64..512 tokens); the token ids must agree at
+    every step, each of ``want`` must launch and nothing else, and every
+    paged step must launch K3 once a layer whose KV the pool pages and K2
+    once a layer it keeps per slot.  Records the kernels' shapes in
+    ``shapes``; returns the launches."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.models import transformer
     from repro_torch.serving.engine import Endpoint
-    slots, max_len, max_new, n_req = 16, 1024, 32, 24
+    slots, max_new, n_req = 16, 32, 24
     dense = Endpoint(cfg, params, slots=slots, max_len=max_len,
                      device="cuda")
     paged = Endpoint(cfg, params, slots=slots, max_len=max_len,
                      device="cuda", paged=True, page_size=16,
                      prefix_cache=False)
+    groups = {n[:n.rfind("/") + 1] for n in paged._paged}
+    n_k3 = sum(len(layers) for g, layers in
+               transformer.cache_groups(cfg).items() if g in groups)
     rng = np.random.default_rng(5)
+    if lengths is None:
+        lengths = rng.integers(64, 513, n_req)
     waiting = [rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32)
-               for L in rng.integers(64, 513, n_req)]
+               for L in lengths]
     cur, left = {}, {}
     times = {"dense": [], "paged": []}
     steps = tokens = 0
@@ -948,14 +1018,22 @@ def paged_vs_dense(cfg, params, card: str, shapes: dict, tag: str) -> dict:
             if not cur:
                 continue
             for name, ep in (("dense", dense), ("paged", paged)):
+                before = (ops.launches["decode_attention"],
+                          ops.launches["paged_decode_attention"])
                 t0 = time.perf_counter()
                 out = ep.decode_all(dict(cur))
                 times[name].append(time.perf_counter() - t0)
                 if name == "dense":
                     nd = out
-                elif out != nd:
+                    continue
+                if out != nd:
                     raise RuntimeError(f"step {steps}: paged tokens {out} != "
                                        f"dense {nd}")
+                step = (ops.launches["decode_attention"] - before[0],
+                        ops.launches["paged_decode_attention"] - before[1])
+                if step != (cfg.num_layers - n_k3, n_k3):
+                    raise RuntimeError(f"[{tag}] paged step {steps} "
+                                       f"launched K2, K3 {step}")
             steps += 1
             for s in list(cur):
                 cur[s], left[s] = nd[s], left[s] - 1
@@ -965,7 +1043,6 @@ def paged_vs_dense(cfg, params, card: str, shapes: dict, tag: str) -> dict:
                     paged.release(s)
                     del cur[s], left[s]
     launches = dict(ops.launches)
-    want = ("flash_attention", "decode_attention", "paged_decode_attention")
     if min(launches[k] for k in want) <= 0 or any(
             n for k, n in launches.items() if k not in want):
         raise RuntimeError(f"[{tag}] paged == dense ran {launches}")
@@ -974,6 +1051,8 @@ def paged_vs_dense(cfg, params, card: str, shapes: dict, tag: str) -> dict:
         raise RuntimeError("paged pool not balanced after the schedule")
     log(f"[{tag}] paged==dense: {n_req} requests, {steps} decode steps, "
         f"{tokens} tokens: paged token ids == dense at every step; "
+        f"each paged step launched K3 {n_k3} and K2 "
+        f"{cfg.num_layers - n_k3} times (paged leaves {paged._paged}); "
         f"launches {launches}")
     log(f"[{tag}] paged==dense: median decode_all wall, 16 slots: dense "
         f"{1e3 * statistics.median(times['dense']):.3f} ms, paged "
@@ -981,36 +1060,47 @@ def paged_vs_dense(cfg, params, card: str, shapes: dict, tag: str) -> dict:
     return launches
 
 
-def serve_paged(cfg, params, shapes: dict) -> dict:
-    """Phase 5c: the paged main path, the continuum over two paged tiers
-    serving function-prompt traffic."""
+def serve_paged(cfg, params, shapes: dict, tag: str = "paged",
+                topo=None, per_round=(2, 3, 4, 5, 6, 8, 10, 10),
+                fn_lengths=(100, 237, 330, 509), lengths=None,
+                kernels=("flash_attention", "paged_decode_attention")
+                ) -> dict:
+    """Phases 5c and 5l (b): the paged path, the continuum over two paged
+    tiers (``topo``, default 5c's) serving function-prompt traffic:
+    ``per_round`` requests a round (5c: 48), three in four drawn by
+    Zipf(1.1) from prompts of ``fn_lengths``, the rest of a length drawn
+    from ``lengths`` (default 64..512).  Fails unless every request is
+    served with 32 tokens, each of ``kernels`` launched and nothing else
+    did, some tier hit its prefix registry and every pool drains to the
+    pages its registry pins."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.platform import (AutoscalingPolicy, Continuum,
                                       FunctionSpec, LinkSpec, Request,
                                       TierSpec, Topology)
-    max_len, max_new = 1024, 32
-    topo = Topology(
-        (TierSpec("edge", slots=8, max_len=max_len, page_size=16,
-                  pool_pages=128),
-         TierSpec("cloud", slots=16, max_len=max_len, page_size=16,
-                  extra_latency_s=0.02, queue_depth_per_slot=None)),
-        (LinkSpec(rtt_s=0.0),), waterfall=False)
+    max_new = 32
+    if topo is None:
+        topo = Topology(
+            (TierSpec("edge", slots=8, max_len=1024, page_size=16,
+                      pool_pages=128),
+             TierSpec("cloud", slots=16, max_len=1024, page_size=16,
+                      extra_latency_s=0.02, queue_depth_per_slot=None)),
+            (LinkSpec(rtt_s=0.0),), waterfall=False)
+    fn = cfg.name.split("-")[0]
     cc = Continuum(topology=topo, policy="auto", seed=0, device="cuda")
-    cc.deploy(FunctionSpec(name="stablelm", arch="stablelm-1.6b",
+    cc.deploy(FunctionSpec(name=fn, arch=cfg.name,
                            autoscaling=AutoscalingPolicy()), cfg, params)
     for t in cc.tiers:
-        ep = t.endpoints["stablelm"]
-        log(f"[paged] tier {t.name}: {ep.slots} slots, {ep.total_pages} "
+        ep = t.endpoints[fn]
+        log(f"[{tag}] tier {t.name}: {ep.slots} slots, {ep.total_pages} "
             f"pages of {ep.page_size} tokens, pool "
-            f"{ep.pool_nbytes / 2**20:.1f} MiB")
+            f"{ep.pool_nbytes / 2**20:.1f} MiB, paged leaves {ep._paged}")
     rng = np.random.default_rng(7)
     fn_prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
-                  for L in (100, 237, 330, 509)]
+                  for L in fn_lengths]
     zipf = 1.0 / np.arange(1, 5) ** 1.1
     zipf /= zipf.sum()
-    per_round = (2, 3, 4, 5, 6, 8, 10, 10)              # 48 requests
     reqs = []
     ops.reset_launches()
     torch.cuda.synchronize()
@@ -1021,14 +1111,16 @@ def serve_paged(cfg, params, shapes: dict) -> dict:
                 if rng.uniform() < 0.75:
                     toks = fn_prompts[int(rng.choice(4, p=zipf))].copy()
                 else:
-                    toks = rng.integers(0, cfg.vocab_size, int(
-                        rng.integers(64, 513))).astype(np.int32)
+                    L = (rng.integers(64, 513) if lengths is None
+                         else rng.choice(lengths))
+                    toks = rng.integers(0, cfg.vocab_size,
+                                        int(L)).astype(np.int32)
                 req = Request(rid=len(reqs), tokens=toks, max_new=max_new)
                 reqs.append(req)
-                if not cc.submit("stablelm", req):
+                if not cc.submit(fn, req):
                     raise RuntimeError(f"request {req.rid} rejected")
             r = cc.tick()
-            log(f"[paged] round={rnd} submitted={n} "
+            log(f"[{tag}] round={rnd} submitted={n} "
                 f"edge={r['tiers']['edge']} cloud={r['tiers']['cloud']} "
                 f"steps={r['steps']} R_t={r['R']:.1f}%")
         drained = cc.drain()
@@ -1038,36 +1130,35 @@ def serve_paged(cfg, params, shapes: dict) -> dict:
     served = {t.name: sum(r["tiers"][t.name] for r in cc.log)
               for t in cc.tiers}
     if sum(served.values()) != len(reqs) or any(r.failed for r in reqs):
-        raise RuntimeError(f"paged: served {served} of {len(reqs)}")
+        raise RuntimeError(f"{tag}: served {served} of {len(reqs)}")
     for r in reqs:
         if (r.output is None or r.output.shape != (max_new,)
                 or r.output.min() < 0 or r.output.max() >= cfg.vocab_size):
-            raise RuntimeError(f"paged request {r.rid}: bad output "
+            raise RuntimeError(f"{tag} request {r.rid}: bad output "
                                f"{r.output}")
-    if launches["paged_decode_attention"] <= 0 or \
-            launches["flash_attention"] <= 0:
-        raise RuntimeError(f"paged path skipped a kernel: {launches}")
-    if any(launches[k] for k in launches if k.endswith("_plain")) or \
-            launches["decode_attention"]:
-        raise RuntimeError(f"paged path ran another attention: {launches}")
-    eps = {t.name: t.endpoints["stablelm"] for t in cc.tiers}
+    if min(launches[k] for k in kernels) <= 0:
+        raise RuntimeError(f"{tag} path skipped a kernel: {launches}")
+    if any(n for k, n in launches.items() if k not in kernels):
+        raise RuntimeError(f"{tag} path ran another kernel or a plain "
+                           f"version: {launches}")
+    eps = {t.name: t.endpoints[fn] for t in cc.tiers}
     if not any(ep.prefill_hit_rate > 0 for ep in eps.values()):
-        raise RuntimeError("paged: no prefix hit on any tier")
+        raise RuntimeError(f"{tag}: no prefix hit on any tier")
     for name, ep in eps.items():
         if (not ep.pool.check_balanced() or ep.active
                 or ep.used_pages != len(ep.prefix.pinned_pages())):
-            raise RuntimeError(f"paged tier {name}: pool not drained to "
+            raise RuntimeError(f"{tag} tier {name}: pool not drained to "
                                f"its registry")
-        log(f"[paged] tier {name}: served {served[name]}, prefill hit rate "
+        log(f"[{tag}] tier {name}: served {served[name]}, prefill hit rate "
             f"{ep.prefill_hit_rate:.4f}, peak resident requests "
             f"{ep.peak_active}, registry {len(ep.prefix)} prompts in "
             f"{ep.used_pages} pages")
     tokens = len(reqs) * max_new
-    log(f"[paged] served {len(reqs)}/{len(reqs)} drain_ticks={drained} "
+    log(f"[{tag}] served {len(reqs)}/{len(reqs)} drain_ticks={drained} "
         f"tokens={tokens} wall={secs:.2f}s "
         f"tokens_per_s={tokens / secs:.1f} final_R_t={cc.log[-1]['R']:.2f}% "
         f"launches={launches}")
-    log(f"[paged] K3 shapes (q, pool, tables) -> launches: "
+    log(f"[{tag}] K3 shapes (q, pool, tables) -> launches: "
         f"{ {str(k): v for k, v in sorted(shapes['K3'].items())} }")
     return launches
 
@@ -1075,7 +1166,36 @@ def serve_paged(cfg, params, shapes: dict) -> dict:
 # phase 4d: the smoke models of the MoE family and the other one-card
 # configurations
 NEW_SMOKE_ARCHS = ("qwen2-moe-a2.7b", "mixtral-8x7b", "qwen2.5-14b",
-                   "internvl2-1b", "musicgen-medium")
+                   "internvl2-1b", "musicgen-medium", "nemotron-4-340b")
+
+
+def llama3_smoke_refuses_the_card() -> None:
+    """Phase 4d: llama3-405b's smoke model has head_dim 8, which no
+    kernel takes; on the card its prefill must raise from the launcher,
+    not fall back to the plain version (it is held on the CPU only)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo
+    from repro_torch.serving.engine import Endpoint
+    cfg = configs.get_smoke_config("llama3-405b")
+    params = model_zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    ep = Endpoint(cfg, params, slots=2, max_len=32, device="cuda")
+    ops.reset_launches()
+    s = ep.try_claim()
+    try:
+        ep.prefill_batch({s: np.arange(5, dtype=np.int32)})
+    except ValueError as e:
+        if "head_dim 8" not in str(e):
+            raise
+        if any(ops.launches.values()):
+            raise RuntimeError(f"llama3 smoke: launched {dict(ops.launches)}")
+        log(f"[model] llama3-405b smoke model (head_dim 8) on the card "
+            f"raises from the launcher, no plain fallback: {e}")
+        return
+    raise RuntimeError("llama3-405b smoke model ran on the card at head_dim "
+                       "8")
 
 # prompt lengths both scans' rule admits (S <= 128 or S % 128 == 0)
 SCAN_PROMPTS = (64, 100, 128, 256, 384, 512)
@@ -1351,15 +1471,19 @@ def _step_device(ep, prompts: dict, card: str, tag: str, label: str):
 
 
 def serve_chain(cfg, params, shapes: dict, card: str,
-                eq1: str = "window") -> dict:
-    """Phase 5f (``eq1="window"``) or 5i (``"sketch"``): full-width
-    stablelm-1.6b through a live three-tier device -> edge -> cloud chain
-    (waterfall on) under ``"auto+net"``, arrivals from a bursty trace;
-    conservation, the kernels launched on every tier, the net-aware cap,
-    sim R_t == live R_t on the recorded controller inputs (replayed
-    through the simulator's control loop over the same chain), the
-    controller's host time, tokens/s and (5f) one decode step per tier.
-    Returns the launches and the summary 5i prints beside 5f's."""
+                eq1: str = "window", topo=None, tag=None,
+                need=("flash_attention", "decode_attention",
+                      "paged_decode_attention"), time_tiers=None) -> dict:
+    """Phase 5f (``eq1="window"``), 5i (``"sketch"``) or 5m (``topo``
+    the cost-priced chain): full-width stablelm-1.6b through a live
+    three-tier device -> edge -> cloud chain (waterfall on) under
+    ``"auto+net"``, arrivals from a bursty trace; conservation, the
+    kernels of ``need`` launched and nothing else, the net-aware cap, sim
+    R_t == live R_t on the recorded controller inputs (replayed through
+    the simulator's control loop over the same chain), the controller's
+    host time, tokens/s and (``eq1="window"``) one decode step per tier
+    of ``time_tiers`` (default all), every slot resident.  Returns the
+    launches and the summary (with each timed step's device ms)."""
     import copy
     import numpy as np
     import torch
@@ -1367,9 +1491,11 @@ def serve_chain(cfg, params, shapes: dict, card: str,
     from repro_torch.kernels import ops
     from repro_torch.platform import (AutoscalingPolicy, Continuum,
                                       FunctionSpec)
-    tag = "chain" if eq1 == "window" else "5i"
+    if tag is None:
+        tag = "chain" if eq1 == "window" else "5i"
     max_len, max_new = 1024, 32
-    topo = _chain_topology(max_len)
+    if topo is None:
+        topo = _chain_topology(max_len)
     trace = _chain_trace(cfg.vocab_size)
     cc = Continuum.from_topology(topo, policy="auto+net",
                                  req_bytes=CHAIN_REQ_BYTES, trace=trace,
@@ -1437,7 +1563,6 @@ def serve_chain(cfg, params, shapes: dict, card: str,
                 or r.output.min() < 0 or r.output.max() >= cfg.vocab_size):
             raise RuntimeError(f"{tag} request {r.rid}: bad output "
                                f"{r.output}")
-    need = ("flash_attention", "decode_attention", "paged_decode_attention")
     if min(launches[k] for k in need) <= 0:
         raise RuntimeError(f"{tag} skipped a kernel: {launches}")
     if any(n for k, n in launches.items() if k not in need):
@@ -1486,7 +1611,7 @@ def serve_chain(cfg, params, shapes: dict, card: str,
         f"steps; K1 {launches['flash_attention']}, K2 "
         f"{launches['decode_attention']}, K3 "
         f"{launches['paged_decode_attention']} launches")
-    for t in ("K1", "K2", "K3"):
+    for t in [KERNEL_TAGS[k] for k in need]:
         log(f"[{tag}] {t} shapes -> launches: "
             f"{ {str(k): v for k, v in sorted(shapes.get(t, {}).items())} }")
     if eq1 != "window":
@@ -1495,7 +1620,10 @@ def serve_chain(cfg, params, shapes: dict, card: str,
     # one decode step per tier, every slot resident (the edge's rows fit
     # its pages: 8 x 10 of 128)
     rng = np.random.default_rng(5)
+    summary["step_device_ms"] = {}
     for tier in cc.tiers:
+        if time_tiers is not None and tier.name not in time_tiers:
+            continue
         ep = tier.endpoints["stablelm"]
         prompts = {}
         while ep.active < ep.slots:
@@ -1505,8 +1633,9 @@ def serve_chain(cfg, params, shapes: dict, card: str,
             if slot is None:                # pages held by the registry
                 break
             prompts[slot] = toks
-        _step_device(ep, prompts, card, "chain", f"tier {tier.name}"
-                     f"{' (paged)' if ep.paged else ''}")
+        summary["step_device_ms"][tier.name] = _step_device(
+            ep, prompts, card, tag, f"tier {tier.name}"
+            f"{' (paged)' if ep.paged else ''}")[1]
     return launches, summary
 
 
@@ -1967,6 +2096,110 @@ def serve_rwkv6(cfg, params, shapes: dict, card: str) -> dict:
                           "rwkv6_scan", ("tm_x", "tm_s", "cm_x"))
 
 
+# ---------------------------------------------------------------- 5l, 5m
+
+PAGED_HYMBA_KERNELS = ("flash_attention", "decode_attention",
+                       "paged_decode_attention", "ssd_scan")
+# 5l (a): 24 prompts of the scan rule's lengths, two of 1024 tokens
+PAGED_HYMBA_LENGTHS = (64, 128, 256, 384, 512, 1024, 128, 256, 64, 512,
+                       384, 128, 256, 64, 512, 384, 1024, 128, 256, 512,
+                       64, 384, 128, 256)
+
+
+def serve_hymba_paged(cfg, params, card: str, shapes: dict) -> dict:
+    """Phase 5l on phase 5d's hymba weights: full-width hymba-1.5b on a
+    paged tier, its 3 global layers' KV in the page pool (K3), its 29
+    window layers' rolling rows and every layer's SSM state per slot
+    (K2).  (a) paged == dense through 5b's schedule at max_len 2048, two
+    1024-token prompts wrapping the window rows; (b) 5d's 2-tier
+    continuum with both tiers paged and function-prompt traffic (16
+    requests, prefix hits); (c) a paged row migrated mid-stream == the
+    unmigrated one, the link carrying its ``PagedRow`` bytes + 4 B a
+    token.  Returns the launches of all three."""
+    from repro_torch.platform import LinkSpec, TierSpec, Topology
+    total: dict = {}
+    t0 = time.perf_counter()
+    parts = [paged_vs_dense(cfg, params, card, shapes, "5l",
+                            max_len=RECURRENT_MAX_LEN,
+                            lengths=PAGED_HYMBA_LENGTHS,
+                            want=PAGED_HYMBA_KERNELS)]
+    free_card("5l (a)")
+    page = dict(max_len=RECURRENT_MAX_LEN, page_size=16)
+    topo = Topology((TierSpec("edge", slots=2, **page),
+                     TierSpec("cloud", slots=16, extra_latency_s=0.02,
+                              queue_depth_per_slot=None, **page)),
+                    (LinkSpec(rtt_s=0.0),), waterfall=False)
+    parts.append(serve_paged(cfg, params, shapes, "5l", topo,
+                             per_round=(1, 2, 2, 2, 3, 3, 3),
+                             fn_lengths=(128, 256, 384, 512),
+                             lengths=SCAN_PROMPTS,
+                             kernels=PAGED_HYMBA_KERNELS))
+    free_card("5l (b)")
+    parts.append(migration_case(
+        "hymba", "5l c: paged -> paged, hymba", cfg, params, 16,
+        RECURRENT_MAX_LEN, dict(page_size=16), card, PAGED_HYMBA_KERNELS,
+        cross_tick=False))
+    for part in parts:
+        for k, n in part.items():
+            total[k] = total.get(k, 0) + n
+    log(f"[5l] phase wall {time.perf_counter() - t0:.2f} s; launches "
+        f"{total} ({card})")
+    return total
+
+
+def serve_costed_chain(cfg, params, card: str) -> dict:
+    """Phase 5m on phase 5's stablelm weights: the cost-priced chain
+    ``Topology.device_edge_cloud(cost_model=True, max_len=1024)``,
+    resolved on the H100 SXM5 record (stablelm-1.6b on the device,
+    qwen2.5-14b on a (1, 2) edge mesh, llama3-405b on a (16, 16) cloud
+    mesh), served live by full-width stablelm-1.6b through
+    ``Continuum.from_topology`` with 5f's trace, ``"auto+net"`` and links.
+    The two meshes deploy unsharded on the one card with the reference's
+    warning.  The same checks as 5f (conservation, K1 and K2 launched and
+    nothing else, sim R_t == live R_t on every scrape), then the device
+    tier's decode step at its priced slot count: its device time beside
+    the priced ``decode_step_ms``."""
+    import warnings
+    from repro_torch.launch import tier_cost
+    from repro_torch.platform import Topology
+    topo = Topology.device_edge_cloud(cost_model=True, max_len=1024)
+    for spec in topo.tiers:
+        c = tier_cost.tier_cost(spec.model, mesh_shape=spec.mesh_shape,
+                                requested_slots=spec.slots,
+                                max_len=spec.max_len)
+        r = c.roofline
+        log(f"[5m] tier {spec.name}: {spec.model} on mesh "
+            f"{spec.mesh_shape} ({c.devices} devices): priced slots "
+            f"{spec.slots} (KV fit {c.kv_fit_slots}), decode_step_ms "
+            f"{spec.decode_step_ms!r}, service_rate_mult "
+            f"{spec.service_rate_mult!r}, dominant {r['dominant']} "
+            f"(compute {1e3 * r['compute_s']:.6f} ms, memory "
+            f"{1e3 * r['memory_s']:.6f} ms, collective "
+            f"{1e3 * r['collective_s']:.6f} ms), per device: params "
+            f"{c.params_bytes_per_device:.0f} B, KV row "
+            f"{c.kv_row_bytes_per_device:.0f} B, HBM traffic "
+            f"{r['bytes_per_device']:.0f} B a step")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        launches, summary = serve_chain(
+            cfg, params, {}, card, topo=topo, tag="5m",
+            need=("flash_attention", "decode_attention"),
+            time_tiers=("device",))
+    meshes = [str(w.message) for w in caught
+              if "deploying unsharded" in str(w.message)]
+    if len(meshes) != 2:
+        raise RuntimeError(f"5m: unsharded-deploy warnings {meshes}")
+    for m in meshes:
+        log(f"[5m] warning: {m}")
+    dev = topo.tiers[0]
+    measured = summary["step_device_ms"]["device"]
+    log(f"[5m] device tier decode step of {dev.slots} rows: device time "
+        f"{measured:.4f} ms measured, {dev.decode_step_ms:.6f} ms priced "
+        f"(roofline on the H100 SXM5 record), measured / priced "
+        f"{measured / dev.decode_step_ms:.3f} ({card})")
+    return launches
+
+
 # ---------------------------------------------------------------- 5j, 5k
 
 # the prompt lengths of phases 5j and 5k
@@ -2324,9 +2557,11 @@ def _scan_prompts(n, gen):
 def timing(shapes: dict, launches: dict, hy_shapes: dict,
            hy_launches: dict, window: int, rw_shapes: dict,
            rw_launches: dict, moe_shapes: dict, moe_launches: dict,
-           qw_shapes: dict, qw_launches: dict) -> tuple:
+           qw_shapes: dict, qw_launches: dict, hp_shapes: dict,
+           hp_launches: dict) -> tuple:
     """Phase 6.  Returns (the kernels' rows: K1, K2 at stablelm's main
-    path, K3 at the paged tier's, K4 at rwkv6's, K5 at hymba's; K1, K2
+    path, K3 at the paged tier's, K4 at rwkv6's, K5 at hymba's, K3 at
+    hymba's paged global layers (5l); K1, K2
     and K5 at hymba's shapes; K4 at one 512-token prompt; K1 at the
     smaller prefill buckets and K2 at the edge's B = 2; K1, K2 and K3 at
     qwen2-moe-a2.7b's shapes, K2 at its edge's B = 2 too, and K1 and K2
@@ -2358,6 +2593,15 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
     k5_key = max(hy_shapes["K5"], key=lambda s: (hy_shapes["K5"][s],
                                                  s[0][1]))
     rows.append(_k5_row(k5_key, hy_launches, gen, flush))
+    # K3 at hymba's global layers on the paged cloud's decode batch
+    # (phase 5l): 128 pages a row, rows filled as on its path
+    k3h = max(hp_shapes["K3"], key=lambda s: (s[0][0], hp_shapes["K3"][s]))
+    cpu = torch.Generator().manual_seed(4)
+    B = k3h[0][0]
+    fill = (_scan_prompts(B, cpu)
+            + torch.randint(1, 33, (B,), generator=cpu)).tolist()
+    rows.append({**_k3_row(k3h, hp_launches, gen, flush, fill),
+                 "case": "hymba-1.5b global layers (5l)"})
 
     # K1 and K2 at hymba's shapes: the longest prefill through a window
     # layer, and the cloud tier's decode batch on the rolling and the
@@ -2802,9 +3046,15 @@ def main() -> int:
     smoke_model_vs_cpu("stablelm-1.6b")
     smoke_model_vs_cpu("hymba-1.5b", ("flash_attention", "decode_attention",
                                       "ssd_scan"))
+    smoke_model_vs_cpu("hymba-1.5b", PAGED_HYMBA_KERNELS, paged=True,
+                       hit=True)
+    smoke_model_vs_cpu("nemotron-4-340b", ("flash_attention",
+                                           "paged_decode_attention"),
+                       paged=True, hit=True)
     smoke_model_vs_cpu("rwkv6-7b", ("rwkv6_scan",))
     for arch in NEW_SMOKE_ARCHS:                       # phase 4d
         smoke_model_vs_cpu(arch)
+    llama3_smoke_refuses_the_card()
     smoke_model_vs_cpu("qwen2-moe-a2.7b", ("flash_attention",
                                            "paged_decode_attention"),
                        paged=True)
@@ -2820,6 +3070,9 @@ def main() -> int:
     chain_launches, chain_summary = serve_chain(cfg, params, {}, card)
     sketch_launches = sketch_chain(cfg, params, card, chain_summary)
     mig_launches = migration_phase(cfg, params, card)
+    free_card("5h")
+    costed_launches = serve_costed_chain(cfg, params, card)
+    free_card("5m")
     faas_bodies(card)
     sim_sweep()
     del params
@@ -2829,6 +3082,9 @@ def main() -> int:
     hy_launches = serve_hymba(hcfg, hparams, hy_shapes, card)
     for k, n in migration_hymba(hcfg, hparams, card).items():
         mig_launches[k] = mig_launches.get(k, 0) + n
+    free_card("5d and 5h (c)")
+    hp_shapes: dict = {}
+    hp_launches = serve_hymba_paged(hcfg, hparams, card, hp_shapes)
     del hparams
     free_card("hymba-1.5b")
     rcfg, rparams = full_model("rwkv6-7b")
@@ -2850,7 +3106,7 @@ def main() -> int:
     rows, hy_rows, rw_rows, more, moe_rows = timing(
         shapes, launches, hy_shapes, hy_launches, hcfg.sliding_window,
         rw_shapes, rw_launches, moe_shapes, moe_launches, qw_shapes,
-        qwen_launches)
+        qwen_launches, hp_shapes, hp_launches)
     for row in rows:
         if row["name"] in ("flash_attention", "decode_attention",
                            "paged_decode_attention"):
@@ -2858,7 +3114,9 @@ def main() -> int:
             row["launches_5i"] = sketch_launches[row["name"]]
             row["launches_5j"] = moe_launches[row["name"]]
             row["launches_5k"] = qwen_launches.get(row["name"], 0)
+            row["launches_5m"] = costed_launches[row["name"]]
         row["launches_5h"] = mig_launches.get(row["name"], 0)
+        row["launches_5l"] = hp_launches.get(row["name"], 0)
     log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")
     log(f"[time-rwkv6] {json.dumps({'k4_rwkv6': rw_rows})}")
     log(f"[time-more] {json.dumps({'buckets_and_edge': more})}")

@@ -12,17 +12,24 @@ semantics.
 rows), with the reference's validation.  ``service_rate_mult`` is the
 simulator's service speed relative to the workload's edge time (``None``
 = the position's default).  :meth:`Topology.device_edge_cloud` is the
-reference's canonical 3-tier chain.  Not ported yet (ROADMAP.md): the
-cost-modeled tiers (``model=``, ``cost_model=True``, the hardware cost
-table) raise ``NotImplementedError``.
+reference's canonical 3-tier chain.
+
+A tier that names a ``model`` (and optionally a ``mesh_shape``) is
+cost-modeled: :meth:`Topology.resolve_costs` derives its ``slots``,
+``decode_step_ms`` and ``service_rate_mult`` from
+``repro_torch.launch.tier_cost`` on a hardware record (the H100 SXM5 by
+default), and both deployments refuse a spec left unresolved.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Iterator, Optional, Sequence, Tuple
 
 from repro_torch.core.replication import AutoscalingPolicy
+
+if TYPE_CHECKING:
+    from repro_torch.launch.roofline import Hardware
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +43,15 @@ class TierSpec:
     ``service_rate_mult`` drives the simulator only: ``mean =
     edge_service_s / mult``; ``None`` runs the ingress tier at the
     profile's edge speed, the deepest at its cloud speed and those between
-    geometrically between."""
+    geometrically between.
+
+    ``model`` names the architecture that prices a cost-modeled tier and
+    ``mesh_shape`` the ``(data, model)`` device mesh it decodes over;
+    :meth:`Topology.resolve_costs` then sets ``slots`` (KV rows that fit
+    beside the sharded weights), ``decode_step_ms`` and
+    ``service_rate_mult`` together.  ``decode_step_ms`` is an output of
+    that resolution, never an input: a cost-modeled spec without it is
+    unresolved, and neither deployment runs it."""
 
     name: str
     slots: int = 4
@@ -53,14 +68,35 @@ class TierSpec:
     pool_pages: Optional[int] = None
     # simulator only: service speed relative to the profile's edge time
     service_rate_mult: Optional[float] = None
-    # not ported yet: asking for it raises
+    # cost model (None = hand-set capacity and rates)
     model: Optional[str] = None
+    mesh_shape: Optional[Tuple[int, int]] = None
+    decode_step_ms: Optional[float] = None
 
     def __post_init__(self):
+        if self.mesh_shape is not None:
+            if self.model is None:
+                raise ValueError("mesh_shape requires model")
+            if (len(self.mesh_shape) != 2
+                    or any(int(a) <= 0 for a in self.mesh_shape)):
+                raise ValueError(
+                    f"mesh_shape must be two positive (data, model) dims, "
+                    f"got {self.mesh_shape}")
+        if self.decode_step_ms is not None:
+            if self.model is None:
+                raise ValueError("decode_step_ms requires model (it is an "
+                                 "output of cost resolution, not an input)")
+            if self.decode_step_ms <= 0:
+                raise ValueError(
+                    f"tier {self.name!r}: decode_step_ms must be > 0")
         if self.model is not None:
-            raise NotImplementedError(
-                f"tier {self.name!r}: cost-modeled tiers (model=...) need "
-                f"the H100 cost table, not ported yet (ROADMAP.md)")
+            # resolution sets both derived fields or neither
+            if (self.service_rate_mult is None) != (self.decode_step_ms
+                                                    is None):
+                raise ValueError(
+                    f"tier {self.name!r}: cost-modeled specs derive "
+                    f"service_rate_mult and decode_step_ms together via "
+                    f"Topology.resolve_costs(); set neither by hand")
         if self.page_size is not None:
             if self.page_size <= 0 or self.max_len % self.page_size:
                 raise ValueError(
@@ -86,6 +122,23 @@ class TierSpec:
         if self.pool_pages is not None:
             return self.pool_pages
         return self.slots * self.pages_per_row
+
+    @property
+    def cost_modeled(self) -> bool:
+        """True when capacity and rates come from the cost model."""
+        return self.model is not None
+
+    @property
+    def resolved(self) -> bool:
+        """True when this spec is runnable: hand-set, or cost-derived."""
+        return self.model is None or self.decode_step_ms is not None
+
+    @property
+    def devices(self) -> int:
+        """Devices this tier's endpoint spans (the mesh's product)."""
+        if self.mesh_shape is None:
+            return 1
+        return int(self.mesh_shape[0]) * int(self.mesh_shape[1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +222,28 @@ class Topology:
     def __repr__(self) -> str:
         return f"Topology({' -> '.join(self.names)}, waterfall={self.waterfall})"
 
+    def resolve_costs(self, hw: Optional["Hardware"] = None) -> "Topology":
+        """Resolve every cost-modeled tier on ``hw`` (default the H100
+        SXM5 record): derived ``slots``, ``decode_step_ms`` and
+        ``service_rate_mult`` from ``launch.tier_cost.resolve_specs``;
+        hand-set specs pass through as they are.  Returns ``self`` when
+        nothing needs resolving, else a new resolved Topology."""
+        if all(t.resolved for t in self.tiers):
+            return self
+        from repro_torch.launch import tier_cost
+        kw = {} if hw is None else {"hw": hw}
+        return type(self)(tier_cost.resolve_specs(self.tiers, **kw),
+                          links=self.links, waterfall=self.waterfall)
+
+    @classmethod
+    def costed(cls, tiers: Sequence[TierSpec],
+               links: Optional[Sequence[LinkSpec]] = None,
+               waterfall: bool = True,
+               hw: Optional["Hardware"] = None) -> "Topology":
+        """Build a chain and resolve its cost-modeled tiers in one step."""
+        return cls(tiers, links=links,
+                   waterfall=waterfall).resolve_costs(hw)
+
     @classmethod
     def pair(cls, edge, cloud, link: Optional[LinkSpec] = None) -> "Topology":
         """The historical two-tier continuum as a Topology.
@@ -187,16 +262,36 @@ class Topology:
     def device_edge_cloud(cls, device_slots: int = 2, edge_slots: int = 4,
                           cloud_slots: int = 64, max_len: int = 256,
                           autoscaling: Optional[AutoscalingPolicy] = None,
-                          cost_model: bool = False) -> "Topology":
+                          cost_model: bool = False,
+                          hw: Optional["Hardware"] = None) -> "Topology":
         """The canonical 3-tier chain: on-device -> edge site -> cloud,
-        waterfall on.  The device runs at half the edge's speed behind a
-        short LAN hop (queue depth 4), the edge at the profile's edge speed
-        (depth 8), the elastic cloud at the profile default (unbounded).
-        ``cost_model=True`` needs the H100 cost table and raises."""
+        waterfall on, over a 5 ms / 50 MB/s and a 40 ms / 100 MB/s link.
+
+        By default the device runs at half the edge's speed (queue depth
+        4), the edge at the profile's edge speed (depth 8), the elastic
+        cloud at the profile default (unbounded).  With
+        ``cost_model=True`` the tiers are priced on ``hw`` (default the
+        H100 SXM5): stablelm-1.6b on the device, qwen2.5-14b on a (1, 2)
+        edge mesh, llama3-405b on a (16, 16) cloud mesh; the requested
+        slot counts become ceilings, clamped to what fits in HBM, and
+        each hop down the chain serves a bigger, slower model."""
         if cost_model:
-            raise NotImplementedError(
-                "device_edge_cloud(cost_model=True): cost-modeled tiers "
-                "need the H100 cost table, not ported yet (ROADMAP.md)")
+            return cls(
+                tiers=(TierSpec("device", slots=device_slots,
+                                max_len=max_len, autoscaling=autoscaling,
+                                model="stablelm-1.6b", mesh_shape=(1, 1),
+                                queue_depth_per_slot=4),
+                       TierSpec("edge", slots=edge_slots, max_len=max_len,
+                                autoscaling=autoscaling,
+                                model="qwen2.5-14b", mesh_shape=(1, 2),
+                                queue_depth_per_slot=8),
+                       TierSpec("cloud", slots=cloud_slots, max_len=max_len,
+                                autoscaling=autoscaling,
+                                model="llama3-405b", mesh_shape=(16, 16),
+                                queue_depth_per_slot=None)),
+                links=(LinkSpec(rtt_s=0.005, bandwidth_Bps=50e6),
+                       LinkSpec(rtt_s=0.04, bandwidth_Bps=100e6)),
+                waterfall=True).resolve_costs(hw)
         return cls(
             tiers=(TierSpec("device", slots=device_slots, max_len=max_len,
                             autoscaling=autoscaling,

@@ -13,7 +13,10 @@ on-device ingress tier in front of the edge (a 3-tier device -> edge ->
 cloud chain, waterfall on); ``--net-aware`` is ``--policy auto+net``.
 ``--scheduler wave`` serves with the run-to-completion wave drain;
 ``--max-steps-per-tick N`` lets long requests stay slot-resident across
-ticks, which is what gives ``+migrate`` rows to move.
+ticks, which is what gives ``+migrate`` rows to move.  ``--page-size N``
+serves every tier from a paged KV pool of N-token pages (hymba pages its
+global layers and keeps its window rows and SSM state per slot; rwkv6
+has no leaf to page and raises).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full --rounds 20
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
@@ -26,6 +29,8 @@ ticks, which is what gives ``+migrate`` rows to move.
         --rounds 6 --policy auto
     PYTHONPATH=src python -m repro_torch.launch.serve --policy \\
         auto+migrate --max-steps-per-tick 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch hymba-1.5b --page-size 16
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from repro_torch.device import check_fits, resolve
 from repro_torch.models import model_zoo
 from repro_torch.platform import (AutoscalingPolicy, Continuum,
                                   FunctionSpec, LinkSpec, OffloadConfig,
-                                  Request, TierConfig, TierSpec, Topology)
+                                  Request, TierSpec, Topology)
 
 
 def main():
@@ -75,6 +80,9 @@ def main():
                     help="cuda (default) or cpu")
     ap.add_argument("--full", action="store_true",
                     help="serve the full-width config, not the smoke one")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="serve every tier from a paged KV pool with "
+                         "pages of this many tokens")
     args = ap.parse_args()
 
     device = resolve(args.device)
@@ -89,25 +97,24 @@ def main():
                     max_steps_per_tick=(args.max_steps_per_tick
                                         if args.max_steps_per_tick > 0
                                         else None))
+    page = dict(max_len=64, page_size=args.page_size)
     if args.device_slots > 0:
         topo = Topology(
-            tiers=(TierSpec("device", slots=args.device_slots, max_len=64),
-                   TierSpec("edge", slots=args.edge_slots, max_len=64,
-                            extra_latency_s=0.005),
-                   TierSpec("cloud", slots=args.cloud_slots, max_len=64,
-                            extra_latency_s=0.02)),
+            tiers=(TierSpec("device", slots=args.device_slots, **page),
+                   TierSpec("edge", slots=args.edge_slots,
+                            extra_latency_s=0.005, **page),
+                   TierSpec("cloud", slots=args.cloud_slots,
+                            extra_latency_s=0.02, **page)),
             links=(LinkSpec(rtt_s=0.005, bandwidth_Bps=50e6),
                    LinkSpec(rtt_s=0.04, bandwidth_Bps=100e6)))
-        cc = Continuum.from_topology(
-            topo, policy=policy, offload_cfg=OffloadConfig(),
-            seed=args.seed, device=device, **sched_kw)
     else:
-        cc = Continuum(
-            edge=TierConfig(slots=args.edge_slots, max_len=64),
-            cloud=TierConfig(slots=args.cloud_slots, max_len=64,
-                             extra_latency_s=0.02),
-            policy=policy, offload_cfg=OffloadConfig(), seed=args.seed,
-            device=device, **sched_kw)
+        topo = Topology.pair(
+            TierSpec("edge", slots=args.edge_slots, **page),
+            TierSpec("cloud", slots=args.cloud_slots, extra_latency_s=0.02,
+                     queue_depth_per_slot=None, **page))
+    cc = Continuum.from_topology(
+        topo, policy=policy, offload_cfg=OffloadConfig(), seed=args.seed,
+        device=device, **sched_kw)
     spec = FunctionSpec(name=args.arch, arch=args.arch, revision=1,
                         autoscaling=AutoscalingPolicy())
     cc.deploy(spec, cfg, params)

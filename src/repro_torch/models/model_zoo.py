@@ -5,22 +5,27 @@ The counterpart of ``repro/models/model_zoo.py``::
     param_table(cfg)                   -> {path: ParamSpec}
     init(cfg, generator)               -> params (on the generator's device)
     prefill(cfg, params, batch, cache, lengths=None) -> (last_logits, cache)
-    decode(cfg, params, cache, tokens, t, active=None, page_tables=None)
-                                       -> (logits, cache)
+    decode(cfg, params, cache, tokens, t, active=None, page_tables=None,
+           paged=())                   -> (logits, cache)
     init_cache(cfg, batch, max_len, device) -> cache
-    init_paged_pool(cfg, total_pages, page_size, device) -> page pool
+    paged_leaves(cfg, max_len)         -> names of the leaves a pool pages
+    init_paged_pool(cfg, slots, max_len, total_pages, page_size, row)
+                                       -> page pool
 
 Every family of the reference is ported: ``dense``, ``moe``, ``hymba``
-and ``rwkv6``.  ``dense`` and ``moe`` page their KV cache alike (a
-sliding-window config smaller than the context still raises in
-``decode_step``: the reference keeps those rolling rows per slot).
-hymba's paged pool is not ported yet (ROADMAP item 4), and rwkv6 has no
-leaf to page (its state does not grow with the context).
+and ``rwkv6``.  A paged pool pages a cache leaf by the reference's rule
+(``repro/serving/engine.py:196-204``): its length axis follows the slot
+axis and has extent ``max_len``.  So the dense and MoE families page
+every attention stack while ``max_len`` stays below their window,
+hymba pages its global layers and keeps its rolling-window stacks and
+SSM state per slot, and rwkv6 has no leaf to page (its state does not
+grow with the context).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+import functools
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,19 +37,14 @@ class Family(NamedTuple):
     layer_fn: transformer.LayerFn
     table_fn: Callable[[ModelConfig], Dict[str, common.ParamSpec]]
     cache_fn: Callable[..., Dict[str, torch.Tensor]]
-    #: None where the family's paged tier is not ported
-    paged_pool_fn: Optional[Callable[..., Dict[str, torch.Tensor]]]
 
 
 _FAMILIES = {
     "dense": Family(transformer.dense_layer, transformer.param_table,
-                    transformer.init_cache, transformer.init_paged_pool),
-    "moe": Family(moe.moe_layer, moe.param_table, transformer.init_cache,
-                  transformer.init_paged_pool),
-    "hymba": Family(hymba.hymba_layer, hymba.param_table, hymba.init_cache,
-                    None),
-    "rwkv6": Family(rwkv6.rwkv_layer, rwkv6.param_table, rwkv6.init_cache,
-                    None),
+                    transformer.init_cache),
+    "moe": Family(moe.moe_layer, moe.param_table, transformer.init_cache),
+    "hymba": Family(hymba.hymba_layer, hymba.param_table, hymba.init_cache),
+    "rwkv6": Family(rwkv6.rwkv_layer, rwkv6.param_table, rwkv6.init_cache),
 }
 
 
@@ -71,22 +71,62 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache, lengths=None):
 
 
 def decode(cfg: ModelConfig, params: Params, cache, tokens, t, active=None,
-           page_tables=None):
+           page_tables=None, paged: Tuple[str, ...] = ()):
     return transformer.decode_step(cfg, params, cache, tokens, t, active,
-                                   page_tables, family(cfg).layer_fn)
+                                   page_tables, paged, family(cfg).layer_fn)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return family(cfg).cache_fn(cfg, batch, max_len, device)
 
 
-def init_paged_pool(cfg: ModelConfig, total_pages: int, page_size: int,
-                    device=None):
-    fn = family(cfg).paged_pool_fn
-    if fn is None:
-        raise NotImplementedError(
-            f"the paged pool of the {cfg.family!r} family is not ported "
-            f"(ROADMAP.md queue 1, item 4: the reference pages its global "
-            f"layers and keeps rolling-window rows and recurrent state per "
-            f"slot)")
-    return fn(cfg, total_pages, page_size, device)
+@functools.lru_cache(maxsize=None)
+def len_axes(cfg: ModelConfig, max_len: int) -> Dict[str, Optional[int]]:
+    """Per cache leaf, the axis whose extent follows ``max_len``, or None
+    for a leaf that has none (recurrent state, a rolling window narrower
+    than ``max_len``).  Derived as the reference's ``_cache_len_axes``:
+    where the cache's shape changes when ``max_len`` does."""
+    a = init_cache(cfg, 1, max_len, "meta")
+    b = init_cache(cfg, 1, max_len + 1, "meta")
+    return {name: next((i for i, (x, y) in enumerate(zip(a[name].shape,
+                                                         b[name].shape))
+                        if x != y), None)
+            for name in a}
+
+
+@functools.lru_cache(maxsize=None)
+def paged_leaves(cfg: ModelConfig, max_len: int) -> Tuple[str, ...]:
+    """The cache leaves a paged pool pages, by the reference's rule: the
+    length axis immediately follows the slot axis (axis 1 in every
+    family) and has extent ``max_len``.  The other leaves stay per slot
+    ("residual")."""
+    row = init_cache(cfg, 1, max_len, "meta")
+    return tuple(name for name, axis in len_axes(cfg, max_len).items()
+                 if axis == 2 and row[name].shape[2] == max_len)
+
+
+def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int,
+                    total_pages: int, page_size: int,
+                    row: Dict[str, torch.Tensor]):
+    """A paged pool on ``row``'s device: every leaf of
+    :func:`paged_leaves` as (n, total_pages + 1, page_size, ...) pages
+    (page ``total_pages`` is the null page that pads every table, never
+    written), every other leaf per slot as (n, slots, ...), all at the
+    init values of ``row``, the single-row ``init_cache(cfg, 1,
+    max_len)``.  Raises the reference's ``ValueError`` when no leaf
+    pages."""
+    paged = paged_leaves(cfg, max_len)
+    if not paged:
+        raise ValueError(
+            f"model family {cfg.family!r} has no pageable cache leaves "
+            "(no full-context KV blocks)")
+    pool = {}
+    for name, leaf in row.items():
+        if name in paged:
+            page = leaf[:, :, :page_size]
+            pool[name] = page.expand(page.shape[0], total_pages + 1,
+                                     *page.shape[2:]).clone()
+        else:
+            pool[name] = leaf.expand(leaf.shape[0], slots,
+                                     *leaf.shape[2:]).clone()
+    return pool

@@ -29,14 +29,17 @@ engine gets from ``jnp.where(active, new, old)``.
 Modes: ``prefill`` (full sequence, fills the cache) and ``decode`` (one
 token per row against the cache).  Training is not ported yet.
 
-Decode also runs against a **paged pool** (:func:`init_paged_pool`):
-``{"k", "v": (L, P+1, page, Hkv, Dh), "pos": (L, P+1, page)}``, page ``P``
-the reserved null page (pos -1 for ever), and a ``(B, ppr)`` page table
-per step.  Row b's position t lives at page ``table[b, (t % W) // page]``,
-offset ``t % page`` (``W = ppr * page``): the dense rolling layout with
-one indirection, so attention reads the pool in place (kernel K3) and
-the token stream equals the dense one.  Prefill always fills a dense
-cache; the serving engine copies it into pages.
+Decode also runs against a **paged pool**
+(``model_zoo.init_paged_pool``): each paged stack as (n, P+1, page,
+...) pages, page ``P`` the reserved null page (pos -1 for ever), and a
+``(B, ppr)`` page table per step.  Row b's position t lives at page
+``table[b, (t % W) // page]``, offset ``t % page`` (``W = ppr * page =
+max_len``): the dense rolling layout with one indirection, so attention
+reads the pool in place (kernel K3) and the token stream equals the
+dense one.  The stacks the pool does not page (hymba's rolling-window
+stacks and SSM state) stay per slot in the same dict, and their layers
+decode as in a dense cache.  Prefill always fills a dense cache; the
+serving engine copies it into pages.
 """
 
 from __future__ import annotations
@@ -246,16 +249,21 @@ def forward(cfg: ModelConfig, params: Params, embeds: torch.Tensor,
             layer_fn: LayerFn = dense_layer) -> torch.Tensor:
     """Run the layer stack (a loop over the stacked ``layers`` axis);
     layer i reads and writes its slices of every cache leaf
-    (:func:`layer_caches`; of the page pool, with ``paging``)."""
+    (:func:`layer_caches`); ``paging`` goes to the layers whose attention
+    stack lives in the page pool."""
     stacked, _ = layer_slice(params)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     views = layer_caches(cfg, cache) if cache is not None else None
+    paged_layers = set()
+    if paging is not None:
+        paged_layers = {i for group, layers in cache_groups(cfg).items()
+                        if group in paging.groups for i in layers}
     x = embeds
     for i in range(cfg.num_layers):
         layer_params = {k: v[i] for k, v in stacked.items()}
         x = layer_fn(cfg, layer_params, x, positions,
                      views[i] if views is not None else None, mode, rows,
-                     rope, paging, i)
+                     rope, paging if i in paged_layers else None, i)
     return x
 
 
@@ -350,27 +358,17 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     return cache
 
 
-def init_paged_pool(cfg: ModelConfig, total_pages: int, page_size: int,
-                    device=None) -> Cache:
-    """Allocate a paged KV pool: k/v (L, P+1, page, Hkv, Dh) zeros, pos
-    (L, P+1, page) = -1.  Page ``P = total_pages`` is the null page that
-    pads every page table; nothing ever writes it."""
-    L, Hkv, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    kv = (L, total_pages + 1, page_size, Hkv, Dh)
-    return {"k": torch.zeros(kv, dtype=cfg.compute_dtype, device=device),
-            "v": torch.zeros(kv, dtype=cfg.compute_dtype, device=device),
-            "pos": torch.full((L, total_pages + 1, page_size), -1,
-                              dtype=torch.int32, device=device)}
-
-
 class Paging(NamedTuple):
     """One decode step's view of the page tables, built once and handed
-    to every layer: the (B, ppr) tables, and for each written row its
-    row index, physical page and offset in the page."""
+    to the layers of the paged stacks: the (B, ppr) tables, for each
+    written row its row index, physical page and offset in the page, and
+    the :func:`cache_groups` prefixes of the stacks that live in the
+    pool."""
     tables: torch.Tensor
     rows: torch.Tensor
     write_pages: torch.Tensor
     write_offsets: torch.Tensor
+    groups: frozenset
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -401,11 +399,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                 tokens: torch.Tensor, t: torch.Tensor,
                 active: Optional[torch.Tensor] = None,
                 page_tables: Optional[torch.Tensor] = None,
+                paged: Tuple[str, ...] = (),
                 layer_fn: LayerFn = dense_layer):
     """One decode step. tokens: (B,), t: (B,) current positions; ``active``
     (B,) bool limits the cache writes to those rows.  With ``page_tables``
     (B, ppr) int32 on the tokens' device, ``cache`` is a page pool
-    (:func:`init_paged_pool`).  Returns (logits (B,V) float32, cache)."""
+    (``model_zoo.init_paged_pool``) whose leaves named in ``paged`` are
+    pages.  Returns (logits (B,V) float32, cache)."""
     batch = {"tokens": tokens[:, None], "offset": t}
     emb, positions = assemble_embeds(cfg, params, batch)
     rows = None
@@ -416,19 +416,16 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
             tokens.device)
     paging = None
     if page_tables is not None:
-        page = cache["k"].shape[2]
+        page = cache[paged[0]].shape[2]
         W = page_tables.shape[1] * page
-        if cfg.sliding_window is not None and cfg.sliding_window < W:
-            raise NotImplementedError(
-                f"paged decode of a sliding-window config "
-                f"(window {cfg.sliding_window} < max_len {W}) is not "
-                f"ported: the reference keeps rolling-window rows per slot")
         if rows is None:
             rows = torch.arange(tokens.shape[0], device=tokens.device)
         slot = t[rows].long().remainder(W)
         paging = Paging(page_tables, rows,
                         page_tables[rows, slot // page].long(),
-                        slot.remainder(page))
+                        slot.remainder(page),
+                        frozenset(name[:name.rfind("/") + 1]
+                                  for name in paged))
     x = forward(cfg, params, emb, positions, cache, "decode", rows, paging,
                 layer_fn)
     return output_head(cfg, params, x)[:, 0], cache

@@ -41,6 +41,11 @@ the run-to-completion wave drain as the baseline.  ``eq1="sketch"``
 from streaming histograms instead of sorted windows.  The simulator is
 numpy on the host and runs anywhere; the live runtime defaults to the
 card.
+
+Cost-modeled tiers name the architecture that prices them::
+
+    topo = Topology.device_edge_cloud(cost_model=True)   # on an H100
+    tier_cost("llama3-405b", mesh_shape=(16, 16), requested_slots=64)
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from repro_torch.core.replication import AutoscalingPolicy, FunctionSpec
 from repro_torch.core.simulator import (ContinuumSimulator, SimConfig,
                                         SimResult)
 from repro_torch.core.topology import LinkSpec, TierSpec, Topology
+from repro_torch.launch.tier_cost import TierCost, tier_cost
 from repro_torch.serving.engine import Request
 from repro_torch.serving.tiers import EdgeCloudContinuum, Gateway, TierConfig
 from repro_torch.workloads.faults import (FaultEvent, FaultSchedule,
@@ -71,6 +77,7 @@ __all__ = [
     "ControlLoop", "OffloadConfig", "AutoscalingPolicy", "FunctionSpec",
     "Trace", "FaultEvent", "FaultSchedule",
     "edge_brownout", "cloud_partition", "tier_outage", "merge_schedules",
+    "tier_cost", "TierCost",
 ]
 
 

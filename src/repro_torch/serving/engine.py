@@ -21,8 +21,12 @@ The pool has two layouts:
   point), and an exact-prompt hit skips prefill entirely.  Decode reads
   the pool in place through the page tables (kernel K3 on the card),
   where the reference gathers pages into the dense view and scatters the
-  written page back; the token stream equals the dense one.  Migration
-  payloads (:class:`PagedRow`) carry only the used pages.
+  written page back; the token stream equals the dense one.  A leaf
+  pages by the reference's rule (``model_zoo.paged_leaves``: its length
+  axis has extent ``max_len``); the others (hymba's rolling-window
+  stacks and SSM state) stay per slot as "residual" leaves, filled by
+  prefill and carried by migration with the row.  Migration payloads
+  (:class:`PagedRow`) carry only the used pages and the residual rows.
 
 Prefill is bucketed as in the reference: prompts are grouped by length,
 each group runs at a power-of-two batch (the last real row repeated) on
@@ -56,19 +60,6 @@ from repro_torch.models import model_zoo
 from repro_torch.models.common import ModelConfig
 
 
-def _len_axes(cfg: ModelConfig, max_len: int) -> Dict[str, Optional[int]]:
-    """Per leaf, the axis whose size follows ``max_len``, or None for a
-    leaf that has none (recurrent state, a rolling window narrower than
-    ``max_len``).  Derived as the reference's ``_cache_len_axes``: where
-    the cache's shape changes when ``max_len`` does."""
-    a = model_zoo.init_cache(cfg, 1, max_len, "meta")
-    b = model_zoo.init_cache(cfg, 1, max_len + 1, "meta")
-    return {name: next((i for i, (x, y) in enumerate(zip(a[name].shape,
-                                                         b[name].shape))
-                        if x != y), None)
-            for name in a}
-
-
 @dataclasses.dataclass
 class Request:
     """One inference request (token ids in, token ids out)."""
@@ -88,17 +79,21 @@ class Request:
 
 @dataclasses.dataclass
 class PagedRow:
-    """One extracted paged row, the migration payload: each pool leaf
+    """One extracted paged row, the migration payload: each paged leaf
     narrowed to the ``n_pages`` pages covering the row's filled
-    positions (shape (L, n_pages, page, ...))."""
+    positions (shape (n, n_pages, page, ...)), plus the row's residual
+    leaves, the ones the pool does not page (rolling-window stacks,
+    recurrent state; shape (n, 1, ...))."""
     n_pages: int
     pos: int
     page_leaves: Dict[str, torch.Tensor]
+    resid_leaves: Dict[str, torch.Tensor]
 
     @property
     def nbytes(self) -> float:
         return float(sum(l.numel() * l.element_size()
-                         for l in self.page_leaves.values()))
+                         for leaves in (self.page_leaves, self.resid_leaves)
+                         for l in leaves.values()))
 
 
 def _upload(device: torch.device, *arrays: np.ndarray,
@@ -156,15 +151,17 @@ class Endpoint:
         self.peak_active = 0
         self.paged = bool(paged)
         self.page_size = int(page_size)
-        self._len_axes = _len_axes(cfg, max_len)
+        self._len_axes = model_zoo.len_axes(cfg, max_len)
+        #: the leaves the pool pages (empty for a dense pool); the rest
+        #: are per slot
+        self._paged: Tuple[str, ...] = ()
         if self.paged:
             if not (0 < page_size <= max_len) or max_len % page_size:
                 raise ValueError(
                     f"page_size must divide max_len ({max_len}), "
                     f"got {page_size}")
-            # a leaf pages iff its length axis follows the slot axis (the
-            # KV block layout); recurrent state has no length axis
-            if 2 not in self._len_axes.values():
+            self._paged = model_zoo.paged_leaves(cfg, max_len)
+            if not self._paged:
                 raise ValueError(
                     f"model family {cfg.family!r} has no pageable cache "
                     "leaves (no full-context KV blocks)")
@@ -193,8 +190,9 @@ class Endpoint:
             self._claim_meta: Dict[int, Optional[np.ndarray]] = {}
             self.prefill_hit_tokens = 0
             self.prefill_total_tokens = 0
+            row = model_zoo.init_cache(cfg, 1, max_len, self.device)
             self.cache = model_zoo.init_paged_pool(
-                cfg, self.total_pages, self.page_size, self.device)
+                cfg, slots, max_len, self.total_pages, self.page_size, row)
         else:
             self.pages_per_row = 0
             self.total_pages = 0
@@ -202,11 +200,13 @@ class Endpoint:
             self.prefix = None
             self.cache = model_zoo.init_cache(cfg, slots, max_len,
                                               self.device)
-        # Single-row init template, built once: reset_slot restores a
-        # dense row from it instead of materializing a pool-sized init.
-        # A paged pool needs only its shapes (cache_nbytes_per_row).
-        self._row_init = model_zoo.init_cache(
-            cfg, 1, max_len, "meta" if self.paged else self.device)
+            row = model_zoo.init_cache(cfg, 1, max_len, self.device)
+        # Single-row init template of the per-slot leaves, built once:
+        # reset_slot restores a row from it instead of materializing a
+        # pool-sized init.  The paged leaves keep only their shapes
+        # (cache_nbytes_per_row); their pages are scrubbed on allocation.
+        self._row_init = {name: leaf.to("meta") if name in self._paged
+                          else leaf for name, leaf in row.items()}
         # Length padding is sound only for the dense family: causal
         # masking hides padded positions there, but recurrent state
         # threads through every token, and MoE expert capacity follows
@@ -247,15 +247,14 @@ class Endpoint:
         return slot
 
     def reset_slot(self, slot: int) -> None:
-        """Restore one slot's cache rows from the single-row template
-        (what a recurrent family needs between requests; attention rows
-        are self-healing, so the dense main path never calls it).  A
-        paged pool has no per-slot rows: its pages are scrubbed when they
-        are allocated."""
-        if self.paged:
-            return
+        """Restore one slot's per-slot cache rows from the single-row
+        template (attention rows are self-healing and prefill starts every
+        row from a fresh cache, so the serving path never calls it).  A
+        paged pool's pages are scrubbed when they are allocated; only its
+        residual leaves are per slot."""
         for name, leaf in self.cache.items():
-            leaf[:, slot] = self._row_init[name][:, 0]
+            if name not in self._paged:
+                leaf[:, slot] = self._row_init[name][:, 0]
 
     def release(self, slot: int) -> None:
         self.slot_free[slot] = True
@@ -312,10 +311,13 @@ class Endpoint:
 
     @property
     def pool_nbytes(self) -> float:
-        """Bytes of the KV page pool (paged) or of the per-slot KV rows
-        (dense): the denominator of resident requests per GB."""
-        return float(sum(l.numel() * l.element_size()
-                         for l in self.cache.values()))
+        """Bytes of the KV page pool (paged) or of the per-slot leaves
+        that grow with ``max_len`` (dense): the denominator of resident
+        requests per GB, as the reference counts it."""
+        names = (self._paged if self.paged else
+                 [n for n, axis in self._len_axes.items() if axis is not None])
+        return float(sum(self.cache[n].numel() * self.cache[n].element_size()
+                         for n in names))
 
     @property
     def prefill_hit_rate(self) -> float:
@@ -342,13 +344,14 @@ class Endpoint:
         if not pids:
             return
         idx, = _upload(self.device, np.asarray(pids), dtype=torch.long)
-        self.cache["k"].index_fill_(1, idx, 0)
-        self.cache["v"].index_fill_(1, idx, 0)
-        self.cache["pos"].index_fill_(1, idx, -1)
+        for name in self._paged:
+            self.cache[name].index_fill_(1, idx,
+                                         -1 if name.endswith("pos") else 0)
 
     def _copy_page(self, src: int, dst: int) -> None:
         """The device half of a copy-on-write fork (all layers at once)."""
-        for leaf in self.cache.values():
+        for name in self._paged:
+            leaf = self.cache[name]
             leaf[:, dst] = leaf[:, src]
 
     def _set_table(self, slot: int, table: List[int]) -> None:
@@ -455,7 +458,7 @@ class Endpoint:
         (stablelm-1.6b at ``max_len`` 1024 holds 24 layers x k/v x 1024
         positions x 2048 x 2 B, about 201 MB a row).  Paged: a
         :class:`PagedRow` with only the pages covering the row's filled
-        positions."""
+        positions, and the row's residual leaves."""
         if not self.paged:
             return [{name: leaf[:, s:s + 1].clone()
                      for name, leaf in self.cache.items()} for s in slots]
@@ -465,16 +468,20 @@ class Endpoint:
             n = min(self.pages_for(max(pos, 1)), len(self._tables[s]))
             idx, = _upload(self.device, np.asarray(self._tables[s][:n]),
                            dtype=torch.long)
-            out.append(PagedRow(n, pos, {name: leaf[:, idx]
-                                         for name, leaf in
-                                         self.cache.items()}))
+            out.append(PagedRow(
+                n, pos, {name: self.cache[name][:, idx]
+                         for name in self._paged},
+                {name: leaf[:, s:s + 1].clone()
+                 for name, leaf in self.cache.items()
+                 if name not in self._paged}))
         return out
 
     def insert_rows(self, rows: list, slots: List[int],
                     positions: List[int]) -> None:
         """Write extracted row states into *claimed* slots of this pool and
         set their decode positions (decode resumes with no re-prefill).
-        Paged rows land in the slot's reserved pages, grown on demand."""
+        Paged rows land in the slot's reserved pages, grown on demand, and
+        their residual leaves in the slot's rows."""
         for state, slot, pos in zip(rows, slots, positions):
             if not self.paged:
                 for name, leaf in self.cache.items():
@@ -485,8 +492,10 @@ class Endpoint:
                 idx, = _upload(self.device,
                                np.asarray(self._tables[slot][:state.n_pages]),
                                dtype=torch.long)
-                for name, leaf in self.cache.items():
-                    leaf[:, idx] = state.page_leaves[name].to(leaf.device)
+                for name, leaf in state.page_leaves.items():
+                    self.cache[name][:, idx] = leaf.to(self.device)
+                for name, leaf in state.resid_leaves.items():
+                    self.cache[name][:, slot:slot + 1] = leaf.to(self.device)
             self.slot_pos[slot] = min(pos, self.max_len)
 
     def cache_nbytes_per_row(self, length: int) -> float:
@@ -516,7 +525,10 @@ class Endpoint:
         token.  In a paged pool a slot whose claim hit the prefix registry
         skips compute (its prompt pages are resident and the registered
         first token seeds its stream); the rest prefill and register
-        their prompts."""
+        their prompts.  A hit leaves the slot's residual leaves as they
+        were, as the reference's does (``repro/serving/engine.py:945-961``):
+        for hymba the window rows and SSM state are then not the
+        prompt's, and its stream leaves the dense one (ROADMAP §3)."""
         if not self.paged:
             return self._prefill_groups(prompts)
         self.prefill_total_tokens += sum(len(t) for t in prompts.values())
@@ -584,21 +596,26 @@ class Endpoint:
         return out
 
     def _adopt_group(self, group, small, L: int) -> None:
-        """Copy one prefilled length group's rows into their slots'
-        reserved pages: the first ``pages_for(L)`` pages of each row, one
-        indexed copy per leaf over all layers and rows.  Positions in
+        """Copy one prefilled length group's rows into their slots: the
+        first ``pages_for(L)`` pages of each row into its reserved pages,
+        one indexed copy per paged leaf over all layers and rows, and the
+        residual leaves into the slots' rows.  Positions in
         ``[L, n*page)`` carry pos >= L (padded bucket) or -1 and stay
         masked until decode overwrites them."""
         n, page = self.pages_for(max(L, 1)), self.page_size
         G = len(group)
-        idx, = _upload(self.device,
-                       np.concatenate([self._tables[slot][:n]
-                                       for slot, _ in group]),
-                       dtype=torch.long)
+        idx, slots = _upload(self.device,
+                             np.concatenate([self._tables[slot][:n]
+                                             for slot, _ in group]),
+                             np.asarray([slot for slot, _ in group]),
+                             dtype=torch.long)
         for name, leaf in self.cache.items():
-            rows = small[name][:, :G, :n * page]
-            leaf.index_copy_(1, idx, rows.reshape(
-                leaf.shape[0], G * n, page, *leaf.shape[3:]))
+            if name in self._paged:
+                rows = small[name][:, :G, :n * page]
+                leaf.index_copy_(1, idx, rows.reshape(
+                    leaf.shape[0], G * n, page, *leaf.shape[3:]))
+            else:
+                leaf.index_copy_(1, slots, small[name][:, :G])
 
     def _register_prefix(self, slot: int, first_token: int) -> None:
         """Publish a just-prefilled prompt to the prefix registry.  The
@@ -656,7 +673,8 @@ class Endpoint:
             tok_d, t_d, tables = _upload(self.device, tok, t, self._table_np)
             logits, self.cache = model_zoo.decode(
                 self.cfg, self.params, self.cache, tok_d, t_d,
-                torch.from_numpy(act), page_tables=tables)
+                torch.from_numpy(act), page_tables=tables,
+                paged=self._paged)
         nxt = logits.argmax(dim=-1).cpu().numpy()
         out = {}
         for s in tokens_by_slot:

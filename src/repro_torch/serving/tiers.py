@@ -79,7 +79,7 @@ from repro_torch.core.policy import (AutoOffload, ControlLoop, Policy,
 from repro_torch.core.replication import (AutoscalingPolicy, FunctionSpec,
                                           ReplicationController)
 from repro_torch.core.topology import TierSpec, Topology
-from repro_torch.device import DeviceLike, resolve
+from repro_torch.device import DeviceLike, device_count, resolve
 from repro_torch.models.common import ModelConfig
 from repro_torch.serving.engine import Endpoint, Request
 from repro_torch.workloads.faults import (LINK_KINDS, FaultEvent,
@@ -248,7 +248,38 @@ class Tier:
                autoscaling: Optional[AutoscalingPolicy] = None) -> None:
         """Stand up this tier's endpoint pool for one function (over the
         caller's params, shared, not copied); paged when the tier's spec
-        sets ``page_size``."""
+        sets ``page_size``.
+
+        A cost-modeled spec must arrive resolved (``Topology.costed`` or
+        ``resolve_costs``): its ``slots`` are then the HBM-clamped count
+        that also set the simulator's service rate.  ``spec.model`` names
+        the architecture that priced the tier; ``model_cfg`` is what the
+        pool serves.  A ``mesh_shape`` wider than the host's devices (the
+        cards; 1 on the CPU) deploys unsharded with a warning, as the
+        reference does (``repro/serving/sharded.py:64-78``); on a host
+        with enough cards it raises, since the tensor-parallel endpoint is
+        not ported (ROADMAP.md queue 1, item 6)."""
+        if getattr(self.cfg, "model", None) is not None and \
+                not getattr(self.cfg, "resolved", True):
+            raise ValueError(
+                f"tier {self.name!r} declares a cost model "
+                f"({self.cfg.model}) but is unresolved; build the chain "
+                f"via Topology.costed(...) or call .resolve_costs() "
+                f"before deploying")
+        mesh_shape = getattr(self.cfg, "mesh_shape", None)
+        if mesh_shape is not None:
+            need = int(mesh_shape[0]) * int(mesh_shape[1])
+            have = device_count(self.device)
+            if need > 1 and have < need:
+                warnings.warn(
+                    f"mesh_shape {tuple(mesh_shape)} needs {need} devices, "
+                    f"host has {have}: deploying unsharded (bit-identical "
+                    f"fallback)")
+            elif need > 1:
+                raise NotImplementedError(
+                    f"tier {self.name!r}: mesh_shape {tuple(mesh_shape)} "
+                    f"needs the tensor-parallel endpoint, not ported yet "
+                    f"(ROADMAP.md queue 1, item 6)")
         page_size = getattr(self.cfg, "page_size", None)
         self.endpoints[fn_name] = Endpoint(
             model_cfg, params, slots=self.cfg.slots,

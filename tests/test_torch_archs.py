@@ -1,8 +1,10 @@
-"""The five architectures ported with the MoE family, against the JAX
-reference, on the CPU at smoke width: qwen2-moe-a2.7b and mixtral-8x7b
-(``moe``; mixtral's window 16 makes every cache a rolling row),
-qwen2.5-14b (GQA with QKV bias), internvl2-1b (a vision prefix of
-precomputed patch embeddings) and musicgen-medium (gelu, LayerNorm).
+"""The architectures ported with the MoE family and after it, against
+the JAX reference, on the CPU at smoke width: qwen2-moe-a2.7b and
+mixtral-8x7b (``moe``; mixtral's window 16 makes every cache a rolling
+row), qwen2.5-14b (GQA with QKV bias), internvl2-1b (a vision prefix of
+precomputed patch embeddings), musicgen-medium (gelu, LayerNorm),
+llama3-405b (head_dim 8, held on the CPU only: the kernels take 16-128)
+and nemotron-4-340b (relu2, LayerNorm).
 
 For each: every config field equal to the reference's (smoke and full),
 the param tables (keys, shapes, initialisers), ``param_count`` and
@@ -31,7 +33,7 @@ from torch_live import models
 
 ATOL, RTOL = 2e-5, 2e-4              # float32, tests/test_kernels.py:17-19
 ARCHS = ["qwen2-moe-a2.7b", "mixtral-8x7b", "qwen2.5-14b", "internvl2-1b",
-         "musicgen-medium"]
+         "musicgen-medium", "llama3-405b", "nemotron-4-340b"]
 DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 
@@ -72,7 +74,9 @@ def test_full_param_counts():
                       "mixtral-8x7b": 46_702_792_704,
                       "qwen2.5-14b": 14_770_033_664,
                       "internvl2-1b": 629_663_872,
-                      "musicgen-medium": 1_365_543_936}
+                      "musicgen-medium": 1_365_543_936,
+                      "llama3-405b": 405_853_388_800,
+                      "nemotron-4-340b": 341_029_195_776}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -206,8 +210,22 @@ def test_activations_match_reference(activation):
 
 
 @pytest.mark.parametrize("arch", ["llama3-405b", "nemotron-4-340b"])
-def test_item_6_archs_still_raise(arch):
+def test_item_6_archs_still_raise(arch, monkeypatch):
+    """Their configs are ported (the parametrisations above hold them),
+    and their tensor-parallel serving still raises naming item 6: a tier
+    priced on a (2, 8) mesh deploys unsharded on a host with fewer
+    devices and raises on one with enough.  Their full widths do not
+    fit one card."""
+    from repro_torch.core import topology as t_topo
+    from repro_torch.serving import tiers as t_tiers
+    cfg_j, pj, cfg_t, pt = models(arch)
+    spec = t_topo.Topology.costed(
+        (t_topo.TierSpec("cloud", slots=2, max_len=32, model=arch,
+                         mesh_shape=(2, 8)),)).tiers[0]
+    with pytest.warns(UserWarning, match="deploying unsharded"):
+        t_tiers.Tier("cloud", spec, "cpu").deploy("fn", cfg_t, pt)
+    monkeypatch.setattr(t_tiers, "device_count", lambda device: 16)
     with pytest.raises(NotImplementedError, match="item 6"):
-        t_configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_configs.get_smoke_config(arch)
+        t_tiers.Tier("cloud", spec, "cpu").deploy("fn", cfg_t, pt)
+    full = t_configs.get_config(arch)
+    assert full.param_count() * 2 > 80e9

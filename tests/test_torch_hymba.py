@@ -256,10 +256,35 @@ def test_inactive_rows_keep_their_state(models):
         assert not torch.equal(cache[k][:, 0], before[k][:, 0]), k
 
 
+def paged_layer_leaves(cfg_t, names):
+    """The (layer, key) pairs a set of the port's stacked leaf names
+    covers."""
+    groups = t_transformer.cache_groups(cfg_t)
+    out = set()
+    for name in names:
+        group, _, key = name.rpartition("/")
+        layers = groups[group + "/"] if group else range(cfg_t.num_layers)
+        out |= {(i, key) for i in layers}
+    return out
+
+
 def test_paged_pool_is_not_ported_for_hymba(models):
-    _, _, cfg_t, pt = models
-    with pytest.raises(NotImplementedError, match="paged pool"):
-        TEndpoint(cfg_t, pt, slots=2, max_len=32, device="cpu", paged=True)
+    """hymba's paged pool is ported (``tests/test_torch_paged_hybrid.py``
+    holds its streams against the reference); it pages exactly the
+    leaves the reference pages: the global layer's KV when max_len
+    outgrows the 16-wide window, every attention stack below it, never
+    the SSM state."""
+    cfg_j, pj, cfg_t, pt = models
+    for max_len in (8, 16, 32, 64):
+        ref = JEndpoint(cfg_j, pj, slots=2, max_len=max_len, paged=True,
+                        page_size=8)
+        port = TEndpoint(cfg_t, pt, slots=2, max_len=max_len, device="cpu",
+                         paged=True, page_size=8)
+        keys = [(i, k) for i, layer in enumerate(ref.cache)
+                for k in sorted(layer)]
+        want = {lk for lk, pg in zip(keys, ref._is_paged_leaf) if pg}
+        assert paged_layer_leaves(cfg_t, port._paged) == want, max_len
+        assert port.pool_nbytes == ref.pool_nbytes, max_len
 
 
 # ---------------------------------------------------------------- Endpoint

@@ -449,8 +449,11 @@ def test_tierspec_page_validation():
         assert mod.TierSpec("t", max_len=32, page_size=8,
                             pool_pages=6).total_pages == 6
         assert mod.TierSpec("t", max_len=32).total_pages == 0
-    with pytest.raises(NotImplementedError):
-        t_topo.TierSpec("t", model="stablelm-1.6b")
+        # a cost-modeled spec is built unresolved, and pages alike
+        spec = mod.TierSpec("t", slots=4, max_len=32, page_size=8,
+                            model="stablelm-1.6b")
+        assert spec.cost_modeled and not spec.resolved
+        assert spec.total_pages == 16 and spec.devices == 1
 
 
 def test_paged_endpoint_refuses_what_is_not_ported():
@@ -472,13 +475,26 @@ def test_paged_endpoint_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match=msg):
         TEndpoint(windowed, pt, slots=1, max_len=32, device="cpu",
                   paged=True, page_size=8)
-    # paged decode itself refuses such a window (the reference keeps
-    # rolling-window rows per slot)
-    pool = t_zoo.init_paged_pool(windowed, 4, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        t_zoo.decode(windowed, pt, pool, torch.tensor([1]),
-                     torch.tensor([5], dtype=torch.int32),
-                     page_tables=torch.zeros((1, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match=msg):
+        t_zoo.init_paged_pool(windowed, 1, 32, 4, 8,
+                              t_zoo.init_cache(windowed, 1, 32, "cpu"))
+    # a window wider than max_len pages like the dense family: both
+    # packages decode the same ids from it
+    wide = dataclasses.replace(cfg_t, sliding_window=48)
+    assert t_zoo.paged_leaves(wide, 32) == ("k", "v", "pos")
+    eps = (JEndpoint(dataclasses.replace(cfg_j, sliding_window=48), pj,
+                     slots=1, max_len=32, paged=True, page_size=8),
+           TEndpoint(wide, pt, slots=1, max_len=32, device="cpu",
+                     paged=True, page_size=8))
+    toks = np.arange(5, 17, dtype=np.int32)
+    streams = []
+    for ep in eps:
+        s = ep.try_claim(tokens=toks, max_new=24)
+        out = [ep.prefill_batch({s: toks})[s]]
+        for _ in range(23):                 # past max_len: the rows wrap
+            out.append(ep.decode_all({s: out[-1]})[s])
+        streams.append(out)
+    assert streams[0] == streams[1]
 
 
 # --------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from repro_torch.core import simulator as t_sim
 from repro_torch.core import topology as t_topo
 from repro_torch.workloads import faults as t_faults
 from repro_torch.workloads import trace as t_trace
+from test_torch_tier_cost import reference_hardware
 
 SERIES = ("times", "latency_avg", "cpu_util", "mem_mb", "net_MBps",
           "offload_pct", "net_links_MBps")
@@ -195,8 +196,19 @@ def test_sim_refuses_what_is_not_ported():
     # reference does (its boundaries run the auto controller)
     assert type(t_sim.ContinuumSimulator("io", "auto+hedge").control
                 .policy).__name__ == "HedgedOffload"
-    with pytest.raises(NotImplementedError):
-        t_topo.Topology.device_edge_cloud(cost_model=True)
+    # the cost-modeled chain is ported: under the reference's hardware
+    # constants it resolves as the reference's does, and simulates alike
+    want = j_topo.Topology.device_edge_cloud(cost_model=True)
+    got = t_topo.Topology.device_edge_cloud(cost_model=True,
+                                            hw=reference_hardware())
+    for a, b in zip(got.tiers, want.tiers):
+        assert (a.slots, a.decode_step_ms, a.service_rate_mult) == (
+            b.slots, b.decode_step_ms, b.service_rate_mult), a.name
+    assert_same_result(
+        t_sim.ContinuumSimulator("io", "auto", t_sim.SimConfig(
+            duration_s=120.0), topology=got).run(),
+        j_sim.ContinuumSimulator("io", "auto", j_sim.SimConfig(
+            duration_s=120.0), topology=want).run())
     with pytest.raises(ValueError):
         t_sim.ContinuumSimulator("nope", "auto")
     with pytest.raises(TypeError):
