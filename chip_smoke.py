@@ -17,7 +17,10 @@ Phases, each raising on failure (the script then exits non-zero):
    hymba-1.5b's attention shapes among them (25 query heads over 5 kv
    heads, window 1024), and those of qwen2-moe-a2.7b (16/16 at head_dim
    128), qwen2.5-14b (40/8 at 128) and internvl2-1b (14/2 at 64) for K1
-   at B=1 S=512 and K2 at B=16 T=1024 and the edge's B=2, K3 at B=16 with
+   at B=1 S=512 and K2 at B=16 T=1024 and the edge's B=2, and one shard of
+   a tp-2 endpoint of qwen2.5-14b (20/4 at 128) and stablelm-1.6b (16/16
+   at 64) at the same shapes (K2's cluster printed beside the unsharded
+   launch's), K3 at B=16 with
    64 pages a row of 16 for qwen2-moe, and K3 at hymba's global layers
    (B=16, 128 pages a row of 16, 25/5 heads, D=64, no window); K1 also
    with kv positions out of
@@ -48,6 +51,12 @@ Phases, each raising on failure (the script then exits non-zero):
    musicgen-medium and nemotron-4-340b (K1 and K2), and for qwen2-moe on
    paged endpoints (K1 and K3); llama3-405b's smoke model (head_dim 8)
    must raise from the launcher on the card and launch nothing;
+4e. the smoke models of stablelm-1.6b (tp 2 and 4) and qwen2.5-14b (tp 2)
+   on tensor-parallel endpoints, the shards over ``forced_devices(tp)`` on
+   the one card, through phase 4's schedule: the ids must equal the same
+   model's unsharded endpoint on the card, every shard launch K1 and K2
+   and nothing else run; qwen2.5's smoke model at tp 4 (2 kv heads) must
+   raise ``validate_tp``'s ValueError before any launch;
 5. the dense main path: full-width stablelm-1.6b (bf16, seeded random
    weights drawn on the card) served by ``repro_torch.platform.Continuum``
    over a 2-tier edge -> cloud continuum (edge 2 slots, cloud 16,
@@ -178,6 +187,27 @@ Phases, each raising on failure (the script then exits non-zero):
    sim R_t == live R_t on every scrape; then prints the device tier's
    decode step device time at its priced slot count beside the priced
    ``decode_step_ms``.  The K1-K3 rows carry ``launches_5m``;
+5n. tensor parallelism on the one card (shards over ``forced_devices(2)``).
+   (a) (after 5k, on its weights) full-width qwen2.5-14b at tp 2: 16
+   slots, max_len 1024, 16 prompts of 64..512 tokens, 32 new tokens; the
+   unsharded endpoint runs greedily (ids, every step's logits and every
+   decode layer's residual stream kept), then, as a control, one more
+   decode step from the same cache with K2 and with K2's plain version;
+   it is dropped, and the sharded endpoint is fed the same prompts and,
+   at every decode step, the unsharded ids (teacher forcing): once as
+   it is, once with every decode layer reading the unsharded stream
+   (forced layer by layer), once free-running.  Fails unless, forced
+   layer by layer, every layer's residual update and every step's logits
+   lie within 2e-2 of the unsharded ones in relative L2, each shard
+   launched K1 and K2 and nothing else ran; prints the token-forced
+   errors beside the control's, the near ties (unsharded top-2 gap under
+   2e-2 times the row's largest logit) and how many changed argmax, the
+   free-running agreement of the two greedy streams, the bytes gathered
+   a step, and both decode steps (wall, device time) beside 5k's.  (b) (after 5m, on phase 5's weights) 5m's
+   chain again: the edge's (1, 2) mesh deploys as two shards, the
+   cloud's (16, 16) unsharded with the warning; 5m's checks, and both
+   edge shards must launch K1 and K2; prints the share of requests whose
+   ids equal 5m's.  The K1 and K2 rows carry ``launches_5n_b``;
 5g. the paper's four FaaS bodies (matmult n=256, image_proc 128,
    random_io 2^16, mixed 128) on the card, each against its CPU run on
    the same drawn tensors (1e-4 abs / 1e-4 rel), timed with CUDA events;
@@ -188,8 +218,9 @@ Phases, each raising on failure (the script then exits non-zero):
    yardstick of PyTorch library calls (the port never calls them), printed
    as one ``{"kernels": [...]}`` line (K1 and K2 at stablelm's shapes, K3
    at the paged tier's, K4 at rwkv6's, K5 at hymba's, and K3 again at
-   hymba's paged global layers with its launches from 5l, ``"case"``
-   naming it).  Each row also
+   hymba's paged global layers with its launches from 5l, and K1 and K2
+   at a qwen2.5-14b tp-2 shard's shapes with their launches from 5n (a),
+   ``"case"`` naming each).  Each row also
    gives the kernel's and the library call's time on the device alone
    (``device_ms``, ``library_device_ms``: the card kept busy while the
    host enqueues) and the host's time to enqueue the kernel
@@ -439,6 +470,10 @@ def parity() -> None:
         ("qwen2-moe", 1, 512, 512, 16, 16, 128, True, None, None),
         ("qwen2.5-g5", 1, 512, 512, 40, 8, 128, True, None, None),
         ("internvl2-g7", 1, 512, 512, 14, 2, 64, True, None, None),
+        # one shard of a tensor-parallel endpoint at tp 2 (phase 5n):
+        # qwen2.5-14b 20/4 at 128, stablelm-1.6b 16/16 at 64
+        ("qwen2.5-tp2", 1, 512, 512, 20, 4, 128, True, None, None),
+        ("stablelm-tp2", 1, 512, 512, 16, 16, 64, True, None, None),
     ]
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
@@ -500,14 +535,20 @@ def parity() -> None:
         ("qwen2-moe-edge", 2, 1024, 16, 16, 128, None, None),
         ("qwen2.5-edge", 2, 1024, 40, 8, 128, None, None),
         ("internvl2-edge", 2, 1024, 14, 2, 64, None, None),
+        # a tp-2 shard's local heads (phase 5n), cloud and edge batches
+        ("qwen2.5-tp2", 16, 1024, 20, 4, 128, None, None),
+        ("qwen2.5-tp2-edge", 2, 1024, 20, 4, 128, None, None),
+        ("stablelm-tp2", 16, 1024, 16, 16, 64, None, None),
+        ("stablelm-tp2-edge", 2, 1024, 16, 16, 64, None, None),
     ]
+    clusters = {}
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
         for label, B, T, Hq, Hkv, D, win, cap in k2:
             q, k, v, qp, kp = decode_inputs(B, T, Hq, Hkv, D, dt, gen)
             got = ops.decode_attention(q, k, v, qp, kp, window=win,
                                        softcap=cap)
-            C = _launched_split("decode_attention")[0]
+            C = clusters[label] = _launched_split("decode_attention")[0]
             torch.cuda.synchronize()
             want = ref.decode_attention(q, k, v, qp, kp, window=win,
                                         softcap=cap)
@@ -518,6 +559,13 @@ def parity() -> None:
             log(f"[parity] K2 decode_attention {label:14s} {dname:8s} "
                 f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} "
                 f"cluster={C} max_abs_err={err:.3e} ok")
+    for shard, whole in (("qwen2.5-tp2", "qwen2.5-g5"),
+                         ("qwen2.5-tp2-edge", "qwen2.5-edge"),
+                         ("stablelm-tp2", "main"),
+                         ("stablelm-tp2-edge", "edge")):
+        log(f"[parity] K2 cluster of a tp-2 shard {shard}: "
+            f"{clusters[shard]}, of the unsharded launch {whole}: "
+            f"{clusters[whole]}")
 
 
 def paged_inputs(B, ppr, page, Hq, Hkv, D, dtype, gen, fill=None):
@@ -740,6 +788,30 @@ def parity_rwkv() -> None:
 # ---------------------------------------------------------------- phase 4
 
 
+def _smoke_prompts(cfg, rng) -> dict:
+    """Phase 4's four prompts: 5, 17, 17 and 30 tokens."""
+    import numpy as np
+    return {i: rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32)
+            for i, L in enumerate((5, 17, 17, 30))}
+
+
+def _smoke_schedule(ep, prompts: dict, hit: bool = False) -> tuple:
+    """Phase 4's schedule: the prompts claimed (sized from the requests
+    when ``hit``) and prefilled, then 24 decode steps (they wrap a
+    48-slot cache).  Returns (the slots, the last tokens, the ids by
+    slot)."""
+    slots = [ep.try_claim(tokens=prompts[i], max_new=25) if hit
+             else ep.try_claim() for i in prompts]
+    toks = dict(ep.prefill_batch({s: prompts[i]
+                                  for i, s in enumerate(slots)}))
+    out = {s: [t] for s, t in toks.items()}
+    for _ in range(24):
+        toks = ep.decode_all(toks)
+        for s, t in toks.items():
+            out[s].append(t)
+    return slots, toks, out
+
+
 def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
                                              "decode_attention"),
                        paged: bool = False, hit: bool = False) -> None:
@@ -766,20 +838,11 @@ def smoke_model_vs_cpu(arch: str, kernels=("flash_attention",
         kw["total_pages"] = 24              # room for the registry's pages
     eps = {dev: Endpoint(cfg, p, slots=4, max_len=48, device=dev, **kw)
            for dev, p in (("cpu", params_cpu), ("cuda", params_gpu))}
-    prompts = {i: rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32)
-               for i, L in enumerate((5, 17, 17, 30))}
+    prompts = _smoke_prompts(cfg, rng)
     streams = {}
     for dev, ep in eps.items():
         ops.reset_launches()
-        slots = [ep.try_claim(tokens=prompts[i], max_new=25) if hit
-                 else ep.try_claim() for i in prompts]
-        first = ep.prefill_batch({s: prompts[i] for i, s in enumerate(slots)})
-        toks = dict(first)
-        out = {s: [t] for s, t in toks.items()}
-        for _ in range(24):                       # wraps the 48-slot cache
-            toks = ep.decode_all(toks)
-            for s, t in toks.items():
-                out[s].append(t)
+        slots, toks, out = _smoke_schedule(ep, prompts, hit)
         if hit:
             ep.release(slots[1])
             again = ep.try_claim(tokens=prompts[1], max_new=25)
@@ -1197,6 +1260,121 @@ def llama3_smoke_refuses_the_card() -> None:
     raise RuntimeError("llama3-405b smoke model ran on the card at head_dim "
                        "8")
 
+
+# ---------------------------------------------------------------- TP
+
+
+class shard_launches:
+    """Within the block, count each kernel's launches (``ops.launches``)
+    by the shard of a tensor-parallel endpoint whose attention made them:
+    ``counts[shard][kernel]``.  The endpoints sharded inside the block
+    are registered (by the storage of each shard's ``wq``); attention
+    calls of an unsharded endpoint are not counted."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+        from repro_torch.serving import sharded
+        self.modules = (transformer, sharded)
+        self.saved = (transformer.attend, sharded.shard_params)
+        self.owner: dict = {}
+        self.counts: dict = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        transformer, sharded = self.modules
+        attend, shard_params = self.saved
+
+        def registered(*a, **kw):
+            shards = shard_params(*a, **kw)
+            for s, ps in enumerate(shards):
+                self.owner[ps["layers/attn/wq"].untyped_storage()
+                           .data_ptr()] = s
+            return shards
+
+        def counted(cfg, p, *a, **kw):
+            s = self.owner.get(p["attn/wq"].untyped_storage().data_ptr())
+            before = dict(ops.launches)
+            out = attend(cfg, p, *a, **kw)
+            if s is not None:
+                per = self.counts.setdefault(s, {})
+                for k, n in ops.launches.items():
+                    per[k] = per.get(k, 0) + n - before[k]
+            return out
+
+        transformer.attend, sharded.shard_params = counted, registered
+        return self
+
+    def __exit__(self, *exc):
+        transformer, sharded = self.modules
+        transformer.attend, sharded.shard_params = self.saved
+        return False
+
+    def check(self, tag: str, tp: int, kernels: tuple) -> None:
+        """Fail unless each of ``tp`` shards launched each of ``kernels``
+        and no shard launched anything else."""
+        if sorted(self.counts) != list(range(tp)) or any(
+                per.get(k, 0) <= 0 for per in self.counts.values()
+                for k in kernels) or any(
+                n for per in self.counts.values() for k, n in per.items()
+                if k not in kernels):
+            raise RuntimeError(f"{tag}: launches by shard {self.counts}")
+
+
+def smoke_tp_on_card() -> None:
+    """Phase 4e: the smoke models of stablelm-1.6b (tp 2 and 4) and
+    qwen2.5-14b (tp 2) on sharded endpoints over ``forced_devices(tp)``
+    on the card, through phase 4's schedule: the ids must equal the same
+    model's unsharded endpoint on the card, every shard must launch K1
+    and K2, and nothing else (no plain version) may run.  qwen2.5's smoke
+    model at tp 4 (2 kv heads) must raise ``validate_tp``'s ValueError
+    before any launch."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model_zoo
+    from repro_torch.serving.engine import Endpoint
+    kernels = ("flash_attention", "decode_attention")
+    for arch, tp in (("stablelm-1.6b", 2), ("stablelm-1.6b", 4),
+                     ("qwen2.5-14b", 2)):
+        cfg = configs.get_smoke_config(arch)
+        params = model_zoo.init(cfg,
+                                torch.Generator(device="cuda").manual_seed(0))
+        prompts = _smoke_prompts(cfg, np.random.default_rng(0))
+        want = _smoke_schedule(Endpoint(cfg, params, slots=4, max_len=48),
+                               prompts)[2]
+        ops.reset_launches()
+        with mesh_mod.forced_devices(tp), shard_launches() as per:
+            ep = Endpoint(cfg, params, slots=4, max_len=48,
+                          mesh=mesh_mod.make_mesh((1, tp), ("data", "model")))
+            got = _smoke_schedule(ep, prompts)[2]
+        if got != want:
+            raise RuntimeError(f"4e {arch} tp {tp}: ids {got} != unsharded "
+                               f"{want}")
+        per.check(f"4e {arch} tp {tp}", tp, kernels)
+        if any(n for k, n in ops.launches.items() if k not in kernels):
+            raise RuntimeError(f"4e {arch} tp {tp}: {ops.launches}")
+        log(f"[4e] {arch} smoke model at tp {tp} on one card "
+            f"(forced_devices({tp})) == unsharded on the card: "
+            f"{sum(len(v) for v in got.values())} ids identical; launches "
+            f"by shard {per.counts}")
+    cfg = configs.get_smoke_config("qwen2.5-14b")
+    params = model_zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    ops.reset_launches()
+    try:
+        with mesh_mod.forced_devices(4):
+            Endpoint(cfg, params, slots=4, max_len=48,
+                     mesh=mesh_mod.make_mesh((1, 4), ("data", "model")))
+    except ValueError as e:
+        if "num_kv_heads divisible by tp=4" not in str(e) or any(
+                ops.launches.values()):
+            raise
+        log(f"[4e] qwen2.5-14b smoke model at tp 4 refused before any "
+            f"launch: {e}")
+        return
+    raise RuntimeError("4e: qwen2.5-14b smoke model deployed at tp 4")
+
 # prompt lengths both scans' rule admits (S <= 128 or S % 128 == 0)
 SCAN_PROMPTS = (64, 100, 128, 256, 384, 512)
 LONG_PROMPT = 1024                  # past hymba's 1024-token window
@@ -1250,7 +1428,7 @@ def _device_ms(fn, n: int):
 def serve_two_tier(tag: str, cfg, params, shapes: dict, card: str,
                    kernels: tuple, per_round: tuple, prompts: tuple,
                    max_len: int, seed: int, long_rids=(), scan=None,
-                   state_keys: tuple = ()) -> dict:
+                   state_keys: tuple = (), summary: dict = None) -> dict:
     """Phases 5d, 5e, 5j (a) and 5k: one model's main path through the
     continuum (edge 2 slots, cloud 16, ``max_len``, policy auto;
     ``per_round`` requests of 32 new tokens a round, prompts drawn from
@@ -1261,7 +1439,8 @@ def serve_two_tier(tag: str, cfg, params, shapes: dict, card: str,
     served with 32 tokens, each of ``kernels`` launched and nothing else
     did (no plain version, no other kernel), and ``scan``, given,
     launched once a layer a prefill call.  ``state_keys`` are the cache
-    leaves of a recurrent state."""
+    leaves of a recurrent state.  ``summary``, given, receives the cloud
+    endpoint's times."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -1372,7 +1551,7 @@ def serve_two_tier(tag: str, cfg, params, shapes: dict, card: str,
     decode_dev = _device_ms(step, 8)
     for s in list(resident):
         ep.release(s)
-    summary = {}
+    summary = {} if summary is None else summary
     for what, wall, (dev, by_name, split) in (
             ("prefill of one 512-token prompt", prefill_ms, prefill_dev),
             (f"decode step of {ep.slots} rows", decode_ms, decode_dev)):
@@ -1473,7 +1652,8 @@ def _step_device(ep, prompts: dict, card: str, tag: str, label: str):
 def serve_chain(cfg, params, shapes: dict, card: str,
                 eq1: str = "window", topo=None, tag=None,
                 need=("flash_attention", "decode_attention",
-                      "paged_decode_attention"), time_tiers=None) -> dict:
+                      "paged_decode_attention"), time_tiers=None,
+                served_ids: dict = None) -> dict:
     """Phase 5f (``eq1="window"``), 5i (``"sketch"``) or 5m (``topo``
     the cost-priced chain): full-width stablelm-1.6b through a live
     three-tier device -> edge -> cloud chain (waterfall on) under
@@ -1483,7 +1663,8 @@ def serve_chain(cfg, params, shapes: dict, card: str,
     the simulator's control loop over the same chain), the controller's
     host time, tokens/s and (``eq1="window"``) one decode step per tier
     of ``time_tiers`` (default all), every slot resident.  Returns the
-    launches and the summary (with each timed step's device ms)."""
+    launches and the summary (with each timed step's device ms);
+    ``served_ids``, given, receives every served request's ids by rid."""
     import copy
     import numpy as np
     import torch
@@ -1568,6 +1749,8 @@ def serve_chain(cfg, params, shapes: dict, card: str,
     if any(n for k, n in launches.items() if k not in need):
         raise RuntimeError(f"{tag} ran a plain version or another kernel: "
                            f"{launches}")
+    if served_ids is not None:
+        served_ids.update({r.rid: r.output for r in reqs if not r.failed})
     link_MB = [sum(r["link_MB"][l] for r in cc.log)
                for l in range(len(topo.links))]
     spilled = sum(r["spilled"] for r in cc.log)
@@ -2147,7 +2330,7 @@ def serve_hymba_paged(cfg, params, card: str, shapes: dict) -> dict:
     return total
 
 
-def serve_costed_chain(cfg, params, card: str) -> dict:
+def serve_costed_chain(cfg, params, card: str, outputs: dict) -> dict:
     """Phase 5m on phase 5's stablelm weights: the cost-priced chain
     ``Topology.device_edge_cloud(cost_model=True, max_len=1024)``,
     resolved on the H100 SXM5 record (stablelm-1.6b on the device,
@@ -2158,8 +2341,8 @@ def serve_costed_chain(cfg, params, card: str) -> dict:
     warning.  The same checks as 5f (conservation, K1 and K2 launched and
     nothing else, sim R_t == live R_t on every scrape), then the device
     tier's decode step at its priced slot count: its device time beside
-    the priced ``decode_step_ms``."""
-    import warnings
+    the priced ``decode_step_ms``.  ``outputs`` receives the served ids
+    by rid."""
     from repro_torch.launch import tier_cost
     from repro_torch.platform import Topology
     topo = Topology.device_edge_cloud(cost_model=True, max_len=1024)
@@ -2179,24 +2362,67 @@ def serve_costed_chain(cfg, params, card: str) -> dict:
             f"{c.params_bytes_per_device:.0f} B, KV row "
             f"{c.kv_row_bytes_per_device:.0f} B, HBM traffic "
             f"{r['bytes_per_device']:.0f} B a step")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        launches, summary = serve_chain(
-            cfg, params, {}, card, topo=topo, tag="5m",
-            need=("flash_attention", "decode_attention"),
-            time_tiers=("device",))
-    meshes = [str(w.message) for w in caught
-              if "deploying unsharded" in str(w.message)]
-    if len(meshes) != 2:
-        raise RuntimeError(f"5m: unsharded-deploy warnings {meshes}")
-    for m in meshes:
-        log(f"[5m] warning: {m}")
+    launches, summary, _ = _costed_chain(cfg, params, card, topo, "5m", 1,
+                                         outputs, time_tiers=("device",))
     dev = topo.tiers[0]
     measured = summary["step_device_ms"]["device"]
     log(f"[5m] device tier decode step of {dev.slots} rows: device time "
         f"{measured:.4f} ms measured, {dev.decode_step_ms:.6f} ms priced "
         f"(roofline on the H100 SXM5 record), measured / priced "
         f"{measured / dev.decode_step_ms:.3f} ({card})")
+    return launches
+
+
+def _costed_chain(cfg, params, card: str, topo, tag: str, forced: int,
+                  outputs: dict, time_tiers=()) -> tuple:
+    """``serve_chain`` over the costed ``topo`` under
+    ``forced_devices(forced)``: the meshes wider than ``forced`` deploy
+    unsharded, each with the reference's warning, and the others sharded.
+    Returns its launches, summary and the launches by shard (None when
+    ``forced`` is 1: nothing is sharded, and the attention stays as
+    timed in 5m)."""
+    import contextlib
+    import warnings
+    from repro_torch.launch import mesh as mesh_mod
+    counting = shard_launches() if forced > 1 else contextlib.nullcontext()
+    with warnings.catch_warnings(record=True) as caught, \
+            mesh_mod.forced_devices(forced), counting as per:
+        warnings.simplefilter("always")
+        launches, summary = serve_chain(
+            cfg, params, {}, card, topo=topo, tag=tag,
+            need=("flash_attention", "decode_attention"),
+            time_tiers=time_tiers, served_ids=outputs)
+    meshes = [str(w.message) for w in caught
+              if "deploying unsharded" in str(w.message)]
+    wide = [s for s in topo.tiers if s.mesh_shape[0] * s.mesh_shape[1] > 1]
+    if len(meshes) != sum(s.mesh_shape[0] * s.mesh_shape[1] > forced
+                          for s in wide):
+        raise RuntimeError(f"{tag}: unsharded-deploy warnings {meshes}")
+    for m in meshes:
+        log(f"[{tag}] warning: {m}")
+    return launches, summary, per
+
+
+def serve_costed_chain_tp(cfg, params, card: str, outputs_5m: dict) -> dict:
+    """Phase 5n (b): 5m's chain again under ``forced_devices(2)``: the
+    edge's (1, 2) mesh deploys as two shards on the one card, the cloud's
+    (16, 16) unsharded with the warning.  5m's checks (conservation, K1
+    and K2 alone, sim R_t == live R_t on every scrape), and both edge
+    shards must launch K1 and K2; prints the share of requests whose ids
+    equal 5m's."""
+    from repro_torch.platform import Topology
+    topo = Topology.device_edge_cloud(cost_model=True, max_len=1024)
+    outputs: dict = {}
+    launches, summary, per = _costed_chain(cfg, params, card, topo, "5n",
+                                           2, outputs)
+    import numpy as np
+    per.check("5n (b) edge", 2, ("flash_attention", "decode_attention"))
+    both = sorted(set(outputs) & set(outputs_5m))
+    same = sum(np.array_equal(outputs[r], outputs_5m[r]) for r in both)
+    log(f"[5n] (b) the edge's shards launched {per.counts}; served "
+        f"{summary['served']}, rejected {summary['rejected']}; ids equal to "
+        f"5m's for {same} of the {len(both)} requests both served "
+        f"({100 * same / max(len(both), 1):.1f}%)")
     return launches
 
 
@@ -2240,15 +2466,321 @@ def serve_moe(cfg, params, card: str) -> tuple:
     return shapes, launches
 
 
-def serve_qwen25(cfg, params, card: str, shapes: dict) -> dict:
+def serve_qwen25(cfg, params, card: str, shapes: dict,
+                 summary: dict) -> dict:
     """Phase 5k: full-width qwen2.5-14b (40 query heads over 8 kv heads at
     head_dim 128), 16 requests through 5j's 2-tier continuum, the same
-    checks and the same cloud endpoint times."""
+    checks and the same cloud endpoint times (into ``summary``)."""
     _describe("qwen2.5", cfg, params)
     return serve_two_tier(
         "qwen2.5", cfg, params, shapes, card,
         ("flash_attention", "decode_attention"), (1, 1, 2, 2, 2, 2, 3, 3),
-        MOE_PROMPTS, 1024, 19)
+        MOE_PROMPTS, 1024, 19, summary=summary)
+
+
+#: phase 5n (a)'s bf16 tolerance: the relative L2 error of a row's layer
+#: update and of its layer-forced logits
+TP_LOGIT_TOL = 2e-2
+#: phase 5n (a)'s token-forced logits may drift at most this multiple of
+#: the control's largest drift (the unsharded endpoint through K2's plain
+#: version over the same steps): TP reorders K2's split and every column
+#: product's sums, the control K2's alone
+TP_CONTROL_MULT = 2.0
+
+
+def _capture_logits(ep, sink: list) -> tuple:
+    """Wrap ``ep``'s model functions so that every prefill and decode call
+    appends its logits (float32, on the host) to ``sink``; returns the
+    unwrapped pair."""
+    prefill, decode = ep._prefill_fn, ep._decode_fn
+
+    def p(params, tokens, lengths, cache):
+        logits, cache = prefill(params, tokens, lengths, cache)
+        sink.append(logits.float().cpu())
+        return logits, cache
+
+    def d(params, cache, tokens, t, active=None, **kw):
+        logits, cache = decode(params, cache, tokens, t, active, **kw)
+        sink.append(logits.float().cpu())
+        return logits, cache
+
+    ep._prefill_fn, ep._decode_fn = p, d
+    return prefill, decode
+
+
+def _step_logits(sink: list, prompts: dict) -> list:
+    """The captured calls of one prefill of ``prompts`` (one call a length
+    group, in ``Endpoint._prefill_groups``' order) and the decode steps
+    after it, as one (slots, vocab) tensor a step."""
+    by_len: dict = {}
+    for slot, toks in prompts.items():
+        by_len.setdefault(len(toks), []).append(slot)
+    groups = [by_len[L] for L in sorted(by_len)]
+    first = sink[0].new_empty((len(prompts), sink[0].shape[1]))
+    for call, slots in zip(sink, groups):
+        first[slots] = call[:len(slots)]
+    return [first] + sink[len(groups):]
+
+
+def _flips(run: list, ref_logits: list) -> torch.Tensor:
+    """(step, row): where ``run``'s argmax differs from the reference's."""
+    import torch
+    return torch.stack([a.argmax(-1) != b.argmax(-1)
+                        for a, b in zip(run, ref_logits)])
+
+
+def _tp_stream(ep, prompts: dict, steps: int, forced=None) -> dict:
+    """Prefill ``prompts`` into claimed slots, then ``steps`` decode steps
+    fed the endpoint's own ids or, with ``forced`` (slot -> ids), the
+    forced ids (teacher forcing).  Returns its ids by slot; the slots stay
+    resident."""
+    for _ in prompts:
+        ep.try_claim()
+    cur = ep.prefill_batch(prompts)
+    ids = {s: [t] for s, t in cur.items()}
+    for k in range(steps):
+        if forced is not None:
+            cur = {s: forced[s][k] for s in cur}
+        cur = ep.decode_all(cur)
+        for s, t in cur.items():
+            ids[s].append(t)
+    return ids
+
+
+def _step_times(ep, card: str, label: str) -> dict:
+    """One decode step of ``ep`` with every resident row stepping: wall
+    (median of 8, after 3) and device time (profiler, mean of 8); the
+    rows are released after."""
+    toks = {s: 0 for s in range(ep.slots) if not ep.slot_free[s]}
+
+    def step():
+        nonlocal toks
+        toks = ep.decode_all(toks)
+
+    for _ in range(3):
+        step()
+    wall = _wall_ms(step, 8)
+    dev = _device_ms(step, 8)[0]
+    for s in list(toks):
+        ep.release(s)
+    log(f"[5n] {label}: decode step of {len(toks)} rows {wall:.3f} ms wall "
+        f"(median), device time {dev:.4f} ms (profiler), busy share "
+        f"{100 * dev / wall:.1f}% ({card})")
+    return {"wall_ms": wall, "device_ms": dev}
+
+
+def serve_qwen25_tp(cfg, params, card: str, shapes: dict,
+                    k_summary: dict) -> dict:
+    """Phase 5n (a), on 5k's weights: full-width qwen2.5-14b at tp 2 on
+    the one card (two shards over ``forced_devices(2)``).  16 slots,
+    max_len 1024, 16 prompts of 64-512 tokens, 32 new tokens.
+
+    The unsharded endpoint runs greedily first: its ids, every step's
+    logits and every decode step's residual stream layer by layer are
+    kept.  The control runs the same endpoint again over the same
+    prompts, fed those ids at every decode step (teacher forcing), with
+    K2's plain version in K2's place: how far a reordering of one
+    kernel's sums moves these logits over these steps.  Its step is
+    timed.  Then the sharded endpoint, fed the same prompts and ids, runs
+    three times: (1) token-forced, each step's logits against the
+    unsharded ones (near ties and changed argmax printed); (2) also
+    forced layer by layer (each decode layer reads the unsharded stream);
+    (3) free-running (agreement of the greedy streams).  The phase fails
+    unless every row's residual update at every decode layer and every
+    row's layer-forced logits lie within ``TP_LOGIT_TOL`` relative L2 of
+    the unsharded ones, and the token-forced logits within
+    ``TP_CONTROL_MULT`` times the control's largest error.  Every shard
+    must launch K1 and K2, and nothing else may run.  Prints the bytes
+    gathered a step and both decode steps beside 5k's.  Returns the
+    sharded runs' launches (``shapes`` gets their K1, K2 shapes)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import sharded
+    from repro_torch.serving.engine import Endpoint
+    slots, max_len, max_new = 16, 1024, 32
+    rng = np.random.default_rng(29)
+    prompts = {s: rng.integers(0, cfg.vocab_size, int(rng.choice(
+        MOE_PROMPTS))).astype(np.int32) for s in range(slots)}
+    log(f"[5n] (a) qwen2.5-14b tp 2 on one card: {slots} slots, max_len "
+        f"{max_len}, prompt lengths {[len(p) for p in prompts.values()]}")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm(dim=-1)
+                / b.float().norm(dim=-1))
+
+    # the unsharded endpoint, greedy, its decode streams layer by layer
+    family = model_zoo._FAMILIES["dense"]
+    streams: list = []                      # step -> [(x_in, x_out)]
+
+    def recorded(cfg_, p, x, positions, cache, mode, rows, rope, paging,
+                 layer_idx):
+        out = family.layer_fn(cfg_, p, x, positions, cache, mode, rows,
+                              rope, paging, layer_idx)
+        if mode == "decode":
+            if layer_idx == 0:
+                streams.append([])
+            streams[-1].append((x, out))
+        return out
+
+    ep = Endpoint(cfg, params, slots=slots, max_len=max_len)
+    sink: list = []
+    plain = _capture_logits(ep, sink)
+    model_zoo._FAMILIES["dense"] = family._replace(layer_fn=recorded)
+    try:
+        want = _tp_stream(ep, prompts, max_new - 1)
+    finally:
+        model_zoo._FAMILIES["dense"] = family
+    ep._prefill_fn, ep._decode_fn = plain
+    ref_logits = _step_logits(sink, prompts)
+    forced_ids = {s: v[:-1] for s, v in want.items()}
+    # the control: the same steps token-forced through K2's plain version
+    for s in range(slots):
+        ep.release(s)
+    sink = []
+    plain = _capture_logits(ep, sink)
+    k2 = ops.decode_attention
+    ops.decode_attention = ref.decode_attention
+    try:
+        _tp_stream(ep, prompts, max_new - 1, forced=forced_ids)
+    finally:
+        ops.decode_attention = k2
+        ep._prefill_fn, ep._decode_fn = plain
+    control = torch.stack([rel(a, b) for a, b in
+                           zip(_step_logits(sink, prompts), ref_logits)])
+    if control.shape != (max_new, slots):
+        raise RuntimeError("5n (a): the control took other steps")
+    times = {"unsharded": _step_times(ep, card, "unsharded endpoint")}
+    del ep, sink
+    free_card("5n (a) unsharded endpoint")
+
+    # the sharded endpoint: token-forced, layer-forced, free-running
+    forcing = {"on": False, "step": -1}
+    layer_errs: list = []
+    tp_layer = sharded._tp_layer
+
+    def forced(devices, cfg_, p, x, positions, cache, mode, rows=None,
+               rope=None, paging=None, layer_idx=None):
+        if not (forcing["on"] and mode == "decode"):
+            return tp_layer(devices, cfg_, p, x, positions, cache, mode,
+                            rows, rope, paging, layer_idx)
+        if layer_idx == 0:
+            forcing["step"] += 1
+        x_in, x_out = streams[forcing["step"]][layer_idx]
+        out = tp_layer(devices, cfg_, p, x_in, positions, cache, mode, rows,
+                       rope, paging, layer_idx)
+        layer_errs.append(rel((out - x_in).flatten(1),
+                              (x_out - x_in).flatten(1)))     # per row
+        return x_out
+
+    gathered = []
+    gather = sharded._gather
+
+    def counted_gather(pieces, dim, device):
+        out = gather(pieces, dim, device)
+        gathered.append((dim, out.numel() * out.element_size()))
+        return out
+
+    ops.reset_launches()
+    sharded._tp_layer = forced
+    try:
+        with mesh_mod.forced_devices(2), shard_launches() as per, \
+                recording(shapes):
+            ep = Endpoint(cfg, params, slots=slots, max_len=max_len,
+                          mesh=mesh_mod.make_mesh((1, 2), ("data", "model")))
+            log(f"[mem] 5n (a) sharded endpoint built: "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+            sinks = ([], [])
+            for sink, on in zip(sinks, (False, True)):
+                plain = _capture_logits(ep, sink)
+                forcing["on"] = on
+                try:
+                    tf = _tp_stream(ep, prompts, max_new - 1,
+                                    forced=forced_ids)
+                finally:
+                    forcing["on"] = False
+                    ep._prefill_fn, ep._decode_fn = plain
+                if not on:
+                    sharded._gather = counted_gather   # one more step
+                    try:
+                        ep.decode_all({s: 0 for s in range(slots)})
+                    finally:
+                        sharded._gather = gather
+                for s in range(slots):
+                    ep.release(s)
+            free = _tp_stream(ep, prompts, max_new - 1)
+            launches = dict(ops.launches)
+            per.check("5n (a)", 2, ("flash_attention", "decode_attention"))
+    finally:
+        sharded._tp_layer = tp_layer
+    if any(n for k, n in launches.items()
+           if k not in ("flash_attention", "decode_attention")):
+        raise RuntimeError(f"5n (a) ran a plain version: {launches}")
+    token, layer = (_step_logits(sink, prompts) for sink in sinks)
+    if len(token) != len(ref_logits) or len(layer) != len(ref_logits) or \
+            len(layer_errs) != cfg.num_layers * (max_new - 1) or any(
+                len(v) != max_new for v in (*tf.values(), *free.values())):
+        raise RuntimeError("5n (a): the runs took different steps")
+    top2 = torch.stack([b.topk(2, dim=-1).values for b in ref_logits])
+    near = (top2[..., 0] - top2[..., 1]) < TP_LOGIT_TOL * top2[..., 0].abs()
+    errs = {}
+    for label, run in (("token-forced", token),
+                       ("token- and layer-forced", layer),
+                       ("control (unsharded, K2's plain version)", None)):
+        e = control if run is None else torch.stack(
+            [rel(a, b) for a, b in zip(run, ref_logits)])
+        errs[label] = e
+        flips = ("" if run is None else
+                 f"; argmax changed at "
+                 f"{int((_flips(run, ref_logits) & near).sum())} of the "
+                 f"{int(near.sum())} near ties (unsharded top-2 gap < "
+                 f"{TP_LOGIT_TOL} x the row's largest logit) and "
+                 f"{int((_flips(run, ref_logits) & ~near).sum())} elsewhere")
+        log(f"[5n] (a) {label} logits, relative L2 error per (row, step) "
+            f"over {e.numel()}: max {e.max().item():.4e} (row "
+            f"{int(e.max(0).values.argmax())}, step "
+            f"{int(e.max(1).values.argmax())}), median "
+            f"{e.median().item():.4e}, step 0 (prefill) max "
+            f"{e[0].max().item():.4e}{flips}")
+    lerr = torch.stack(layer_errs)                # (step x layer, row)
+    log(f"[5n] (a) layer-forced: each row's residual update at each decode "
+        f"layer, relative L2 over {lerr.numel()} (step, layer, row): max "
+        f"{lerr.max().item():.4e}, median {lerr.median().item():.4e}; "
+        f"tolerance {TP_LOGIT_TOL}")
+    agree = np.mean([a == b for s in want for a, b in zip(want[s], free[s])])
+    log(f"[5n] (a) free-running greedy streams: {100 * agree:.2f}% of "
+        f"{slots * max_new} ids equal, "
+        f"{sum(want[s] == free[s] for s in want)} of {slots} rows equal "
+        f"throughout")
+    log(f"[5n] (a) gathered a step (the embeddings, o, act, logits and "
+        f"the row-parallel weights): "
+        f"{sum(n for _, n in gathered)} B, of which weights "
+        f"{sum(n for dim, n in gathered if dim == 0)} B ({cfg.num_layers} "
+        f"layers x attn/wo + mlp/wo)")
+    log(f"[5n] (a) launches by shard {per.counts}; K1 shapes "
+        f"{ {str(k): v for k, v in sorted(shapes['K1'].items())} }, K2 "
+        f"shapes { {str(k): v for k, v in sorted(shapes['K2'].items())} }")
+    layered = max(errs["token- and layer-forced"].max().item(),
+                  lerr.max().item())
+    if not layered <= TP_LOGIT_TOL:
+        raise RuntimeError(f"5n (a): a row's layer update or layer-forced "
+                           f"logits off by {layered:.4e} in relative L2")
+    drift, bound = (errs["token-forced"].max().item(),
+                    TP_CONTROL_MULT * control.max().item())
+    log(f"[5n] (a) token-forced logits max {drift:.4e} against "
+        f"{TP_CONTROL_MULT} x the control's max = {bound:.4e}")
+    if not drift <= bound:
+        raise RuntimeError(f"5n (a): token-forced logits off by {drift:.4e}"
+                           f", over {TP_CONTROL_MULT} x the control's max")
+    times["sharded"] = _step_times(ep, card, "sharded endpoint (tp 2)")
+    times["5k cloud endpoint"] = {"wall_ms": k_summary["decode"]["wall_ms"],
+                                  "device_ms": k_summary["decode"][
+                                      "device_ms"]}
+    log(f"[5n] (a) decode step of 16 rows, beside 5k's: "
+        f"{json.dumps(times)} ({card})")
+    return launches
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2558,10 +3090,11 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
            hy_launches: dict, window: int, rw_shapes: dict,
            rw_launches: dict, moe_shapes: dict, moe_launches: dict,
            qw_shapes: dict, qw_launches: dict, hp_shapes: dict,
-           hp_launches: dict) -> tuple:
+           hp_launches: dict, tp_shapes: dict, tp_launches: dict) -> tuple:
     """Phase 6.  Returns (the kernels' rows: K1, K2 at stablelm's main
     path, K3 at the paged tier's, K4 at rwkv6's, K5 at hymba's, K3 at
-    hymba's paged global layers (5l); K1, K2
+    hymba's paged global layers (5l), K1 and K2 at a qwen2.5-14b tp-2
+    shard's (5n (a)); K1, K2
     and K5 at hymba's shapes; K4 at one 512-token prompt; K1 at the
     smaller prefill buckets and K2 at the edge's B = 2; K1, K2 and K3 at
     qwen2-moe-a2.7b's shapes, K2 at its edge's B = 2 too, and K1 and K2
@@ -2602,6 +3135,15 @@ def timing(shapes: dict, launches: dict, hy_shapes: dict,
             + torch.randint(1, 33, (B,), generator=cpu)).tolist()
     rows.append({**_k3_row(k3h, hp_launches, gen, flush, fill),
                  "case": "hymba-1.5b global layers (5l)"})
+    # K1 and K2 at a shard's shapes of qwen2.5-14b at tp 2 (phase 5n (a):
+    # 20 query heads over 4 kv heads at head_dim 128): its largest
+    # prefill, and the 16-row decode step, with 5n (a)'s launches
+    k1 = max(tp_shapes["K1"], key=lambda s: (s[0][1], tp_shapes["K1"][s]))
+    rows.append({**_k1_row(k1, tp_launches, gen, flush),
+                 "case": "qwen2.5-14b tp-2 shard (5n a)"})
+    k2 = max(tp_shapes["K2"], key=lambda s: (s[0][0], tp_shapes["K2"][s]))
+    rows.append({**_k2_row(k2, tp_launches, gen, flush, _moe_prompts)[0],
+                 "case": "qwen2.5-14b tp-2 shard (5n a)"})
 
     # K1 and K2 at hymba's shapes: the longest prefill through a window
     # layer, and the cloud tier's decode batch on the rolling and the
@@ -3058,6 +3600,7 @@ def main() -> int:
     smoke_model_vs_cpu("qwen2-moe-a2.7b", ("flash_attention",
                                            "paged_decode_attention"),
                        paged=True)
+    smoke_tp_on_card()                                 # phase 4e
     cfg, params = full_model("stablelm-1.6b")
     shapes: dict = {}
     launches = serve_full(cfg, params, shapes)
@@ -3071,8 +3614,11 @@ def main() -> int:
     sketch_launches = sketch_chain(cfg, params, card, chain_summary)
     mig_launches = migration_phase(cfg, params, card)
     free_card("5h")
-    costed_launches = serve_costed_chain(cfg, params, card)
+    outputs_5m: dict = {}
+    costed_launches = serve_costed_chain(cfg, params, card, outputs_5m)
     free_card("5m")
+    tp_chain_launches = serve_costed_chain_tp(cfg, params, card, outputs_5m)
+    free_card("5n (b)")
     faas_bodies(card)
     sim_sweep()
     del params
@@ -3100,13 +3646,17 @@ def main() -> int:
     free_card("qwen2-moe-a2.7b")
     qcfg, qparams = full_model("qwen2.5-14b")
     qw_shapes: dict = {}
-    qwen_launches = serve_qwen25(qcfg, qparams, card, qw_shapes)
+    qw_summary: dict = {}
+    qwen_launches = serve_qwen25(qcfg, qparams, card, qw_shapes, qw_summary)
+    free_card("5k")
+    tp_shapes: dict = {}
+    tp_launches = serve_qwen25_tp(qcfg, qparams, card, tp_shapes, qw_summary)
     del qparams
     free_card("qwen2.5-14b")
     rows, hy_rows, rw_rows, more, moe_rows = timing(
         shapes, launches, hy_shapes, hy_launches, hcfg.sliding_window,
         rw_shapes, rw_launches, moe_shapes, moe_launches, qw_shapes,
-        qwen_launches, hp_shapes, hp_launches)
+        qwen_launches, hp_shapes, hp_launches, tp_shapes, tp_launches)
     for row in rows:
         if row["name"] in ("flash_attention", "decode_attention",
                            "paged_decode_attention"):
@@ -3115,6 +3665,7 @@ def main() -> int:
             row["launches_5j"] = moe_launches[row["name"]]
             row["launches_5k"] = qwen_launches.get(row["name"], 0)
             row["launches_5m"] = costed_launches[row["name"]]
+            row["launches_5n_b"] = tp_chain_launches[row["name"]]
         row["launches_5h"] = mig_launches.get(row["name"], 0)
         row["launches_5l"] = hp_launches.get(row["name"], 0)
     log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")

@@ -28,12 +28,6 @@ def resolve(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
-def device_count(device: torch.device) -> int:
-    """Devices of ``device``'s kind on this host: the cards, or 1 for the
-    CPU."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
-
-
 def check_fits(cfg, device: torch.device) -> None:
     """Raise when ``cfg``'s parameters alone outgrow the card's memory
     (mixtral-8x7b at full width is 93.4 GB in bf16; the card has 80)."""

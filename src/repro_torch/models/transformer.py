@@ -185,15 +185,15 @@ def _page_write(pool: Cache, k: torch.Tensor, v: torch.Tensor,
     pool["pos"][pages, offs] = positions[rows, 0].to(pool["pos"].dtype)
 
 
-def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                    positions: torch.Tensor, cache: Optional[Cache],
-                    mode: str, rows: Optional[torch.Tensor] = None,
-                    prefix: str = "attn/", rope=None,
-                    paging: Optional["Paging"] = None,
-                    layer_idx: Optional[int] = None) -> torch.Tensor:
-    """Pre-norm attention residual branch (writes ``cache`` in place)."""
+def attend(cfg: ModelConfig, p: Params, h: torch.Tensor,
+           positions: torch.Tensor, cache: Optional[Cache], mode: str,
+           rows: Optional[torch.Tensor] = None, prefix: str = "attn/",
+           rope=None, paging: Optional["Paging"] = None,
+           layer_idx: Optional[int] = None) -> torch.Tensor:
+    """The attention heads of the normed input ``h`` (B,S,d): q/k/v
+    projection, rope, the cache write (in place) and the attention
+    kernel.  Returns o (B,S,Hq,Dh), before the output projection."""
     window = _window_for_layer(cfg, layer_idx)
-    h = apply_norm(cfg, p, prefix + "norm", x)
     q, k, v = qkv_project(cfg, p, h, positions, prefix, rope)
     if mode == "decode" and paging is not None:
         _page_write(cache, k, v, positions, paging)
@@ -213,18 +213,38 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                                       causal=True, window=window)
         if mode == "prefill":
             _cache_write(cache, k, v, positions)
+    return o
+
+
+def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                    positions: torch.Tensor, cache: Optional[Cache],
+                    mode: str, rows: Optional[torch.Tensor] = None,
+                    prefix: str = "attn/", rope=None,
+                    paging: Optional["Paging"] = None,
+                    layer_idx: Optional[int] = None) -> torch.Tensor:
+    """Pre-norm attention residual branch (writes ``cache`` in place)."""
+    h = apply_norm(cfg, p, prefix + "norm", x)
+    o = attend(cfg, p, h, positions, cache, mode, rows, prefix, rope,
+               paging, layer_idx)
     B, S = o.shape[:2]
     wo = p[prefix + "wo"]
     return o.reshape(B, S, -1) @ wo.to(x.dtype).reshape(-1, wo.shape[-1])
 
 
+def mlp_act(cfg: ModelConfig, p: Params, h: torch.Tensor,
+            prefix: str = "mlp/") -> torch.Tensor:
+    """The MLP's hidden activation of the normed input ``h``, before its
+    down projection."""
+    gate = h @ p[prefix + "wi"].to(h.dtype)
+    up = h @ p[prefix + "wg"].to(h.dtype) if cfg.activation == "swiglu" \
+        else None
+    return activate(cfg, gate, up)
+
+
 def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
               prefix: str = "mlp/") -> torch.Tensor:
     h = apply_norm(cfg, p, prefix + "norm", x)
-    gate = h @ p[prefix + "wi"].to(x.dtype)
-    up = h @ p[prefix + "wg"].to(x.dtype) if cfg.activation == "swiglu" \
-        else None
-    return activate(cfg, gate, up) @ p[prefix + "wo"].to(x.dtype)
+    return mlp_act(cfg, p, h, prefix) @ p[prefix + "wo"].to(x.dtype)
 
 
 def dense_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -385,14 +405,29 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     emb, positions = assemble_embeds(cfg, params, batch)
     x = forward(cfg, params, emb, positions, cache, "prefill",
                 layer_fn=layer_fn)
+    return output_head(cfg, params, last_hidden(x, lengths))[:, 0], cache
+
+
+def last_hidden(x: torch.Tensor,
+                lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """x (B,S,d) at each row's last prompt position, (B,1,d): ``S - 1``,
+    or ``lengths - 1`` for a right-padded batch."""
     B, S = x.shape[:2]
     if lengths is None:
-        xl = x[:, -1:]
-    else:
-        idx = (torch.as_tensor(lengths, device=x.device).long() - 1
-               ).clamp(0, S - 1)
-        xl = x[torch.arange(B, device=x.device), idx][:, None]
-    return output_head(cfg, params, xl)[:, 0], cache
+        return x[:, -1:]
+    idx = (torch.as_tensor(lengths, device=x.device).long() - 1
+           ).clamp(0, S - 1)
+    return x[torch.arange(B, device=x.device), idx][:, None]
+
+
+def active_rows(active: Optional[torch.Tensor],
+                device: torch.device) -> Optional[torch.Tensor]:
+    """The row indices of a (B,) bool ``active`` mask, on ``device`` (None
+    for None).  The mask is read on the host (the engine's lives there),
+    so a step issues no device-to-host sync."""
+    if active is None:
+        return None
+    return torch.nonzero(active.cpu().to(torch.bool)).squeeze(1).to(device)
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
@@ -408,12 +443,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     pages.  Returns (logits (B,V) float32, cache)."""
     batch = {"tokens": tokens[:, None], "offset": t}
     emb, positions = assemble_embeds(cfg, params, batch)
-    rows = None
-    if active is not None:
-        # index the rows on the host (the engine's mask lives there), so
-        # the step issues no device-to-host sync
-        rows = torch.nonzero(active.cpu().to(torch.bool)).squeeze(1).to(
-            tokens.device)
+    rows = active_rows(active, tokens.device)
     paging = None
     if page_tables is not None:
         page = cache[paged[0]].shape[2]

@@ -43,11 +43,22 @@ decode.  Greedy argmax happens on the host.
 Every leaf of every family's cache has its slot on axis 1 (per-layer
 stacks lead, ``models/transformer.py``), so ``leaf[:, s]`` serves every
 row operation: reset, extract, insert and the prefill group copy.
+
+With a ``mesh`` whose ``"model"`` axis is wider than 1 the endpoint
+serves tensor-parallel (:mod:`repro_torch.serving.sharded`): its params
+and cache are lists with one dict a shard, each on its device, and the
+dense/sharded choice of model functions is made once, in ``__init__``.
+The row operations act on every shard; a row leaves as the full logical
+row (kv heads concatenated) and lands split by heads, so its bytes do
+not depend on the mesh, and it moves only between endpoints of equal
+``tp``.  A sharded endpoint's ``device`` is its first shard's: tokens go
+up and the gathered logits come back there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -58,6 +69,8 @@ from repro_torch.cache import (PagePool, PrefixRegistry, pages_for_tokens,
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import model_zoo
 from repro_torch.models.common import ModelConfig
+from repro_torch.serving import sharded
+from repro_torch.sharding import Spec
 
 
 @dataclasses.dataclass
@@ -127,14 +140,17 @@ class Endpoint:
     ``prefix_cache`` keeps up to ``prefix_capacity`` prompts resident.
     ``device`` defaults to ``"cuda"`` and must hold ``params`` already (no
     silent copies); ``device="cpu"`` runs the plain attention versions on
-    the CPU.
+    the CPU.  ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh` over
+    devices of that kind) serves tensor-parallel over its ``"model"``
+    axis, with the params sharded from the ones given.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 8,
                  max_len: int = 256, device: DeviceLike = "cuda",
                  paged: bool = False, page_size: int = 16,
                  total_pages: Optional[int] = None,
-                 prefix_cache: bool = True, prefix_capacity: int = 64):
+                 prefix_cache: bool = True, prefix_capacity: int = 64,
+                 mesh=None):
         self.device = resolve(device)
         for name, p in params.items():
             if p.device.type != self.device.type:
@@ -142,6 +158,17 @@ class Endpoint:
                     f"param {name!r} lives on {p.device}, endpoint device "
                     f"is {self.device}: move the weights once, before "
                     f"deploying")
+        self._tp = int(mesh.shape["model"]) if mesh is not None else 1
+        if self._tp > 1 and paged:
+            raise ValueError(
+                "paged=True is not supported on tensor-parallel endpoints "
+                "(page gather/scatter would cross the kv-head sharding)")
+        if self._tp > 1:
+            devices = sharded.model_devices(mesh)
+            if any(d.type != self.device.type for d in devices):
+                raise ValueError(f"mesh devices {devices} are not of the "
+                                 f"endpoint's kind {self.device.type!r}")
+            self.device = devices[0]
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -198,9 +225,33 @@ class Endpoint:
             self.total_pages = 0
             self.pool = None
             self.prefix = None
-            self.cache = model_zoo.init_cache(cfg, slots, max_len,
-                                              self.device)
             row = model_zoo.init_cache(cfg, 1, max_len, self.device)
+        # The model-function indirection: the dense/sharded choice is made
+        # here, once, and every pool operation below stays shared.  A
+        # cache leaf splits and joins by its spec here (none: one piece).
+        self._cache_specs: Dict[str, Spec] = {}
+        if self._tp > 1:
+            self._prefill_fn, self._decode_fn, pspecs, self._cache_specs = \
+                sharded.make_tp_functions(cfg, mesh, row)
+            self.params = sharded.shard_params(params, mesh, pspecs)
+            self._new_cache = functools.partial(sharded.init_cache, cfg,
+                                                mesh)
+        else:
+            def prefill_fn(params, tokens, lengths, cache):
+                return model_zoo.prefill(cfg, params, {"tokens": tokens},
+                                         cache, lengths=lengths)
+
+            def decode_fn(params, cache, tokens, t, active=None, **paging):
+                return model_zoo.decode(cfg, params, cache, tokens, t,
+                                        active, **paging)
+
+            def new_cache(batch, max_len):
+                return model_zoo.init_cache(cfg, batch, max_len, self.device)
+
+            self._prefill_fn, self._decode_fn = prefill_fn, decode_fn
+            self._new_cache = new_cache
+        if not self.paged:
+            self.cache = self._new_cache(slots, max_len)
         # Single-row init template of the per-slot leaves, built once:
         # reset_slot restores a row from it instead of materializing a
         # pool-sized init.  The paged leaves keep only their shapes
@@ -252,9 +303,11 @@ class Endpoint:
         row from a fresh cache, so the serving path never calls it).  A
         paged pool's pages are scrubbed when they are allocated; only its
         residual leaves are per slot."""
-        for name, leaf in self.cache.items():
-            if name not in self._paged:
-                leaf[:, slot] = self._row_init[name][:, 0]
+        for s, shard in enumerate(self._cache_shards()):
+            for name, leaf in shard.items():
+                if name not in self._paged:
+                    leaf[:, slot] = self._split(
+                        name, self._row_init[name])[s][:, 0].to(leaf.device)
 
     def release(self, slot: int) -> None:
         self.slot_free[slot] = True
@@ -267,6 +320,24 @@ class Endpoint:
             self._table_np[slot] = self._null_page
             self._pending_first.pop(slot, None)
             self._claim_meta.pop(slot, None)
+
+    # -- the cache's shards ------------------------------------------------
+    def _cache_shards(self, cache=None) -> list:
+        """``cache`` (default the pool) as its list of shard dicts: the
+        list itself when sharded, ``[cache]`` when not."""
+        cache = self.cache if cache is None else cache
+        return cache if self._tp > 1 else [cache]
+
+    def _split(self, name: str, leaf: torch.Tensor) -> list:
+        """A logical leaf (or row) of cache leaf ``name`` as its shards'
+        pieces, in shard order."""
+        return sharded.split(leaf, self._cache_specs.get(name, ()), self._tp)
+
+    def _join(self, name: str, pieces: list) -> torch.Tensor:
+        """The logical leaf (or row) of ``name`` from its shards' pieces,
+        a new tensor on the endpoint's device."""
+        return sharded.join(pieces, self._cache_specs.get(name, ()),
+                            self.device)
 
     # -- paged bookkeeping (reference engine.py:598-705) -------------------
     @property
@@ -316,8 +387,14 @@ class Endpoint:
         requests per GB, as the reference counts it."""
         names = (self._paged if self.paged else
                  [n for n, axis in self._len_axes.items() if axis is not None])
-        return float(sum(self.cache[n].numel() * self.cache[n].element_size()
-                         for n in names))
+        shards = self._cache_shards()
+        total = 0
+        for n in names:       # a replicated leaf's bytes count once
+            spec = self._cache_specs.get(n, ())
+            held = shards if sharded.shard_axis(spec) is not None \
+                else shards[:1]
+            total += sum(sh[n].numel() * sh[n].element_size() for sh in held)
+        return float(total)
 
     @property
     def prefill_hit_rate(self) -> float:
@@ -444,11 +521,13 @@ class Endpoint:
     def compatible_with(self, other: "Endpoint") -> bool:
         """Row states move between two endpoints iff they serve the same
         model (the same config object) at the same context budget with the
-        same pool layout, on the same device: every shipped leaf then has
-        the same non-slot dimensions.  Pool sizes may differ."""
+        same pool layout and tensor-parallel width, on the same device:
+        every shipped leaf then has the same non-slot dimensions.  Pool
+        sizes may differ."""
         return (other.cfg is self.cfg and other.max_len == self.max_len
                 and other.paged == self.paged
                 and (not self.paged or other.page_size == self.page_size)
+                and other._tp == self._tp
                 and other.device == self.device)
 
     def extract_rows(self, slots: List[int]) -> list:
@@ -460,8 +539,10 @@ class Endpoint:
         :class:`PagedRow` with only the pages covering the row's filled
         positions, and the row's residual leaves."""
         if not self.paged:
-            return [{name: leaf[:, s:s + 1].clone()
-                     for name, leaf in self.cache.items()} for s in slots]
+            shards = self._cache_shards()
+            return [{name: self._join(name, [sh[name][:, s:s + 1]
+                                              for sh in shards])
+                     for name in shards[0]} for s in slots]
         out = []
         for s in slots:
             pos = int(self.slot_pos[s])
@@ -484,8 +565,10 @@ class Endpoint:
         their residual leaves in the slot's rows."""
         for state, slot, pos in zip(rows, slots, positions):
             if not self.paged:
-                for name, leaf in self.cache.items():
-                    leaf[:, slot:slot + 1] = state[name].to(leaf.device)
+                for i, shard in enumerate(self._cache_shards()):
+                    for name, leaf in shard.items():
+                        leaf[:, slot:slot + 1] = self._split(
+                            name, state[name])[i].to(leaf.device)
             else:
                 while len(self._tables[slot]) < state.n_pages:
                     self._grow_table(slot)
@@ -572,12 +655,10 @@ class Endpoint:
             lengths = (torch.full((Bp,), L, dtype=torch.int32,
                                   device=self.device)
                        if self._pad_len else None)
-            small = model_zoo.init_cache(self.cfg, Bp, self.max_len,
-                                         self.device)
-            logits, small = model_zoo.prefill(
-                self.cfg, self.params,
-                {"tokens": torch.as_tensor(tok, device=self.device)},
-                small, lengths=lengths)
+            small = self._new_cache(Bp, self.max_len)
+            logits, small = self._prefill_fn(
+                self.params, torch.as_tensor(tok, device=self.device),
+                lengths, small)
             # copy the G real rows into the pool (the repeated rows hold
             # identical values, so they are left out of the copy)
             if self.paged:
@@ -585,8 +666,10 @@ class Endpoint:
             else:
                 idx = torch.as_tensor([slot for slot, _ in group],
                                       device=self.device)
-                for name, leaf in self.cache.items():
-                    leaf[:, idx] = small[name][:, :G]
+                for shard, rows in zip(self._cache_shards(),
+                                       self._cache_shards(small)):
+                    for name, leaf in shard.items():
+                        leaf[:, idx.to(leaf.device)] = rows[name][:, :G]
             first = logits[:G].argmax(dim=-1).cpu().numpy()
             for i, (slot, _) in enumerate(group):
                 self.slot_pos[slot] = L
@@ -660,9 +743,8 @@ class Endpoint:
             act[s] = True
         if not self.paged:
             tok_d, t_d = _upload(self.device, tok, t)
-            logits, self.cache = model_zoo.decode(
-                self.cfg, self.params, self.cache, tok_d, t_d,
-                torch.from_numpy(act))
+            logits, self.cache = self._decode_fn(
+                self.params, self.cache, tok_d, t_d, torch.from_numpy(act))
         else:
             for s in tokens_by_slot:
                 wp = (int(self.slot_pos[s]) % self.max_len) // self.page_size
@@ -671,10 +753,9 @@ class Endpoint:
                 if self.pool.is_shared(self._tables[s][wp]):
                     self._cow_page(s, wp)
             tok_d, t_d, tables = _upload(self.device, tok, t, self._table_np)
-            logits, self.cache = model_zoo.decode(
-                self.cfg, self.params, self.cache, tok_d, t_d,
-                torch.from_numpy(act), page_tables=tables,
-                paged=self._paged)
+            logits, self.cache = self._decode_fn(
+                self.params, self.cache, tok_d, t_d, torch.from_numpy(act),
+                page_tables=tables, paged=self._paged)
         nxt = logits.argmax(dim=-1).cpu().numpy()
         out = {}
         for s in tokens_by_slot:

@@ -79,8 +79,9 @@ from repro_torch.core.policy import (AutoOffload, ControlLoop, Policy,
 from repro_torch.core.replication import (AutoscalingPolicy, FunctionSpec,
                                           ReplicationController)
 from repro_torch.core.topology import TierSpec, Topology
-from repro_torch.device import DeviceLike, device_count, resolve
+from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.common import ModelConfig
+from repro_torch.serving import sharded
 from repro_torch.serving.engine import Endpoint, Request
 from repro_torch.workloads.faults import (LINK_KINDS, FaultEvent,
                                           FaultSchedule, LinkState)
@@ -254,11 +255,11 @@ class Tier:
         ``resolve_costs``): its ``slots`` are then the HBM-clamped count
         that also set the simulator's service rate.  ``spec.model`` names
         the architecture that priced the tier; ``model_cfg`` is what the
-        pool serves.  A ``mesh_shape`` wider than the host's devices (the
-        cards; 1 on the CPU) deploys unsharded with a warning, as the
-        reference does (``repro/serving/sharded.py:64-78``); on a host
-        with enough cards it raises, since the tensor-parallel endpoint is
-        not ported (ROADMAP.md queue 1, item 6)."""
+        pool serves.  A ``mesh_shape`` of more than one device deploys the
+        pool tensor-parallel (:mod:`repro_torch.serving.sharded`) over the
+        host's devices of this tier's kind (the cards; the CPU once), and
+        unsharded with the reference's warning when the host has too few
+        (``repro/serving/sharded.py:64-78``)."""
         if getattr(self.cfg, "model", None) is not None and \
                 not getattr(self.cfg, "resolved", True):
             raise ValueError(
@@ -266,27 +267,18 @@ class Tier:
                 f"({self.cfg.model}) but is unresolved; build the chain "
                 f"via Topology.costed(...) or call .resolve_costs() "
                 f"before deploying")
+        mesh = None
         mesh_shape = getattr(self.cfg, "mesh_shape", None)
-        if mesh_shape is not None:
-            need = int(mesh_shape[0]) * int(mesh_shape[1])
-            have = device_count(self.device)
-            if need > 1 and have < need:
-                warnings.warn(
-                    f"mesh_shape {tuple(mesh_shape)} needs {need} devices, "
-                    f"host has {have}: deploying unsharded (bit-identical "
-                    f"fallback)")
-            elif need > 1:
-                raise NotImplementedError(
-                    f"tier {self.name!r}: mesh_shape {tuple(mesh_shape)} "
-                    f"needs the tensor-parallel endpoint, not ported yet "
-                    f"(ROADMAP.md queue 1, item 6)")
+        if mesh_shape is not None and (
+                int(mesh_shape[0]) * int(mesh_shape[1])) > 1:
+            mesh = sharded.tier_mesh(mesh_shape, self.device)
         page_size = getattr(self.cfg, "page_size", None)
         self.endpoints[fn_name] = Endpoint(
             model_cfg, params, slots=self.cfg.slots,
             max_len=self.cfg.max_len, device=self.device,
             paged=page_size is not None,
             page_size=page_size if page_size is not None else 16,
-            total_pages=getattr(self.cfg, "pool_pages", None))
+            total_pages=getattr(self.cfg, "pool_pages", None), mesh=mesh)
         self.inflight.setdefault(fn_name, {})
         self.metrics.register(fn_name)
         # A TierSpec that declares its own KPA bounds governs its pool;

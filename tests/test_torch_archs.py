@@ -210,22 +210,29 @@ def test_activations_match_reference(activation):
 
 
 @pytest.mark.parametrize("arch", ["llama3-405b", "nemotron-4-340b"])
-def test_item_6_archs_still_raise(arch, monkeypatch):
-    """Their configs are ported (the parametrisations above hold them),
-    and their tensor-parallel serving still raises naming item 6: a tier
-    priced on a (2, 8) mesh deploys unsharded on a host with fewer
-    devices and raises on one with enough.  Their full widths do not
-    fit one card."""
+def test_item_6_archs_still_raise(arch):
+    """Their configs are ported (the parametrisations above hold them).
+    A tier priced on a (2, 8) mesh deploys their smoke models unsharded
+    on a host with fewer devices; on one with 16 the tensor-parallel
+    endpoint refuses them as the reference's deploy does (``validate_tp``:
+    their smoke widths do not divide by 8).  Their full widths do not fit
+    one card."""
+    from repro.serving import sharded as j_sharded
     from repro_torch.core import topology as t_topo
+    from repro_torch.launch import mesh as t_mesh
     from repro_torch.serving import tiers as t_tiers
+    refusal = {"llama3-405b": "num_kv_heads divisible by tp=8, got 2",
+               "nemotron-4-340b": "num_heads divisible by tp=8, got 4"}[arch]
     cfg_j, pj, cfg_t, pt = models(arch)
     spec = t_topo.Topology.costed(
         (t_topo.TierSpec("cloud", slots=2, max_len=32, model=arch,
                          mesh_shape=(2, 8)),)).tiers[0]
     with pytest.warns(UserWarning, match="deploying unsharded"):
         t_tiers.Tier("cloud", spec, "cpu").deploy("fn", cfg_t, pt)
-    monkeypatch.setattr(t_tiers, "device_count", lambda device: 16)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match=refusal):
+        j_sharded.validate_tp(cfg_j, 8)
+    with t_mesh.forced_devices(16), pytest.raises(ValueError,
+                                                  match=refusal):
         t_tiers.Tier("cloud", spec, "cpu").deploy("fn", cfg_t, pt)
     full = t_configs.get_config(arch)
     assert full.param_count() * 2 > 80e9

@@ -101,11 +101,11 @@ def test_live_deploy_refuses_unresolved_spec():
             "fn", None, None)
 
 
-def test_mesh_deploys_unsharded_on_one_device(monkeypatch):
+def test_mesh_deploys_unsharded_on_one_device():
     """A resolved spec takes its derived slots; a mesh wider than the
     host deploys unsharded with the reference's warning, and on a host
-    with the devices it asks for the tensor-parallel endpoint (ROADMAP
-    item 6) is refused, not faked."""
+    with the devices it asks for (two forced CPU devices here) the
+    tensor-parallel endpoint, at the same slots."""
     _, _, cfg_t, pt = models()
     spec = t_topo.Topology.costed(
         (t_topo.TierSpec("edge", slots=3, max_len=32, model="qwen2.5-14b",
@@ -115,10 +115,14 @@ def test_mesh_deploys_unsharded_on_one_device(monkeypatch):
     with pytest.warns(UserWarning, match="deploying unsharded"):
         tier.deploy("fn", cfg_t, pt)
     assert tier.endpoints["fn"].slots == spec.slots == 3
-    from repro_torch.serving import tiers as t_tiers
-    monkeypatch.setattr(t_tiers, "device_count", lambda device: 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TTier("edge", spec, "cpu").deploy("fn", cfg_t, pt)
+    assert tier.endpoints["fn"]._tp == 1
+    from repro_torch.launch import mesh as t_mesh
+    tier = TTier("edge", spec, "cpu")
+    with t_mesh.forced_devices(2), warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tier.deploy("fn", cfg_t, pt)
+    assert tier.endpoints["fn"]._tp == 2
+    assert tier.endpoints["fn"].slots == spec.slots == 3
     flat = t_topo.Topology.costed(
         (t_topo.TierSpec("d", slots=2, max_len=32, model="stablelm-1.6b",
                          mesh_shape=(1, 1)),)).tiers[0]
