@@ -24,8 +24,9 @@ Phases, each raising on failure (the script then exits non-zero):
    64 pages a row of 16 for qwen2-moe, and K3 at hymba's global layers
    (B=16, 128 pages a row of 16, 25/5 heads, D=64, no window); K1 also
    with kv positions out of
-   slot order, with rows that see no key (exactly zero) and with a
-   5-token prompt;
+   slot order, with rows that see no key (exactly zero), with a
+   5-token prompt and at stablelm-1.6b's training microbatch (B=4,
+   S=T=2048, 32/32, D=64);
    K2 and K3 at shapes their launcher splits over clusters of 1, 2, 4
    and 8 blocks (the cluster size is printed); the paged kernel K3 over
    shuffled pages, and bitwise against K2 on the gathered view; the
@@ -57,6 +58,17 @@ Phases, each raising on failure (the script then exits non-zero):
    model's unsharded endpoint on the card, every shard launch K1 and K2
    and nothing else run; qwen2.5's smoke model at tp 4 (2 kv heads) must
    raise ``validate_tp``'s ValueError before any launch;
+4f. training at smoke width: every smoke config but llama3-405b's (whose
+   train step must raise from the launcher at head_dim 8) takes 3 train
+   steps (accum 2, int8 error-feedback compression, the reference smoke
+   test's optimizer) on the card and on the CPU from the same parameters
+   and batches: each step's loss and grad_norm within 2e-5 abs / 2e-4
+   rel, the updated params, moments and error buffer within 2 x lr x 3
+   with 99.9 % of each within 1e-6, K1 (attention layers), K4 (rwkv6) and K5 (hymba) launched layers
+   x microbatches x 2 (remat) times a step, nothing else; then the
+   reference's resume test on the card (smoke stablelm, 12 steps,
+   preempted at 7, resumed from step 5): every resumed loss within rtol
+   1e-6 of the uninterrupted run's;
 5. the dense main path: full-width stablelm-1.6b (bf16, seeded random
    weights drawn on the card) served by ``repro_torch.platform.Continuum``
    over a 2-tier edge -> cloud continuum (edge 2 slots, cloud 16,
@@ -208,6 +220,19 @@ Phases, each raising on failure (the script then exits non-zero):
    cloud's (16, 16) unsharded with the warning; 5m's checks, and both
    edge shards must launch K1 and K2; prints the share of requests whose
    ids equal 5m's.  The K1 and K2 rows carry ``launches_5n_b``;
+5o. (last, alone on the card) full-width stablelm-1.6b trains 6 steps
+   through ``launch/train.py``'s ``main`` (batch 8 of 2048 tokens,
+   accum 2 as ``train_preset`` gives, bf16 weights seeded on the card):
+   every loss finite, the first in (1, 20), the last below it, K1 96
+   launches a step (24 layers x 2 microbatches x 2) and no plain
+   version; a control recomputes step 1 with every attention forward
+   through the plain version (grad_norm within 2e-3 relative, the
+   kernel check; loss within 2e-2, a sanity check only: at random init
+   it is about ln V whatever attention computes).
+   Prints the median step wall of steps 2-6, one more step's device time
+   by category (K1, the attention VJP, GEMMs, CE, optimizer, rest; the
+   profiler), tokens/s, the peak memory beside its reckoning and 6 N
+   tokens / step time as a share of the dense-bf16 peak;
 5g. the paper's four FaaS bodies (matmult n=256, image_proc 128,
    random_io 2^16, mixed 128) on the card, each against its CPU run on
    the same drawn tensors (1e-4 abs / 1e-4 rel), timed with CUDA events;
@@ -220,7 +245,9 @@ Phases, each raising on failure (the script then exits non-zero):
    at the paged tier's, K4 at rwkv6's, K5 at hymba's, and K3 again at
    hymba's paged global layers with its launches from 5l, and K1 and K2
    at a qwen2.5-14b tp-2 shard's shapes with their launches from 5n (a),
-   ``"case"`` naming each).  Each row also
+   and K1 at stablelm-1.6b's training microbatch with its launches from
+   5o, ``"case"`` naming each; the main-path rows also carry their
+   launches in 4f, ``launches_4f``).  Each row also
    gives the kernel's and the library call's time on the device alone
    (``device_ms``, ``library_device_ms``: the card kept busy while the
    host enqueues) and the host's time to enqueue the kernel
@@ -474,6 +501,8 @@ def parity() -> None:
         # qwen2.5-14b 20/4 at 128, stablelm-1.6b 16/16 at 64
         ("qwen2.5-tp2", 1, 512, 512, 20, 4, 128, True, None, None),
         ("stablelm-tp2", 1, 512, 512, 16, 16, 64, True, None, None),
+        # stablelm-1.6b's training microbatch (phase 5o): 4 x 2048 tokens
+        ("train", 4, 2048, 2048, 32, 32, 64, True, None, None),
     ]
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
@@ -2783,6 +2812,466 @@ def serve_qwen25_tp(cfg, params, card: str, shapes: dict,
     return launches
 
 
+# ------------------------------------------------------- phases 4f and 5o
+
+# phase 4f: the reference smoke test's optimizer (tests/test_archs.py:47-48)
+TRAIN_SMOKE_OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+TRAIN_SMOKE_STEPS = 3
+# 4f's state gate, the CPU parity test's (tests/test_torch_train_loop.py):
+# every element of params, mu, nu and err within 2 x peak lr x steps (a
+# near-zero gradient rounded to the other sign, or across an int8 step of
+# the compression, moves Adam's update by up to lr), 99.9 % within 1e-6
+STATE_MAX = 2 * TRAIN_SMOKE_OPT["peak_lr"] * TRAIN_SMOKE_STEPS
+STATE_TOL, STATE_SHARE = 1e-6, 0.999
+# 5o's control: grad_norm of step 1 with K1 against the plain attention,
+# relative; 5x the 3.8e-4 read on an H100 at 700 W.  The loss gate (2e-2)
+# is a sanity check, not a kernel check: at random init the loss is about
+# ln V whatever attention computes
+CONTROL_GRAD_RTOL, CONTROL_LOSS_RTOL = 2e-3, 2e-2
+# phase 5o's command line: full-width stablelm-1.6b, 4 x 2048-token
+# microbatches (finding: the plain attention VJP's (B, Hq, S, T) float32
+# transient decides the sequence length)
+TRAIN_FULL_ARGS = ["--arch", "stablelm-1.6b", "--batch", "8", "--seq",
+                   "2048", "--accum", "2", "--warmup", "2", "--steps", "6"]
+TRAIN_SPANS = {"attention_vjp": "train.attention_vjp",
+               "ce": "train.ce", "optimizer": "train.optimizer"}
+_GEMM = re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)
+
+
+def _train_kernels(cfg) -> dict:
+    """The counted kernels a train step of ``cfg`` launches, and the
+    layers that launch each: K1 in every attention layer, K4 in every
+    rwkv6 layer, K5 in every hymba layer."""
+    per = {"dense": ("flash_attention",), "moe": ("flash_attention",),
+           "rwkv6": ("rwkv6_scan",),
+           "hymba": ("flash_attention", "ssd_scan")}[cfg.family]
+    return {k: cfg.num_layers for k in per}
+
+
+class train_spy:
+    """Within the block, every train step that ``make_train_step`` builds
+    records its loss, ``grad_norm`` and the kernel launches it made
+    (``steps``), and, given ``spans``, the attention VJP, the CE chunks
+    and the optimizer run under ``torch.profiler.record_function`` ranges
+    (:data:`TRAIN_SPANS`; the package carries no profiling hooks)."""
+
+    def __init__(self, spans: bool = False):
+        from repro_torch.kernels import ops
+        from repro_torch.models import common
+        from repro_torch.training import optimizer, train_loop
+        self.steps: list = []
+        self.targets = [(train_loop, "make_train_step", self._spy)]
+        if spans:
+            vjp = ops._FlashAttention.backward
+            self.targets += [
+                (ops._FlashAttention, "backward", staticmethod(
+                    self._span(vjp, TRAIN_SPANS["attention_vjp"]))),
+                (common, "_chunk_xent",
+                 self._span(common._chunk_xent, TRAIN_SPANS["ce"])),
+                (optimizer, "apply_updates",
+                 self._span(optimizer.apply_updates,
+                            TRAIN_SPANS["optimizer"]))]
+        self.saved = [m.__dict__[n] for m, n, _ in self.targets]
+        self.make = train_loop.make_train_step
+
+    @staticmethod
+    def _span(fn, label):
+        import torch
+
+        def run(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+        return run
+
+    def _spy(self, *a, **kw):
+        from repro_torch.kernels import ops
+        step = self.make(*a, **kw)
+
+        def run(state, batch):
+            before = dict(ops.launches)
+            state, metrics = step(state, batch)
+            self.steps.append({
+                "loss": metrics["loss"].item(),
+                "grad_norm": metrics["grad_norm"].item(),
+                "launches": {k: n - before[k]
+                             for k, n in ops.launches.items()}})
+            return state, metrics
+        return run
+
+    def __enter__(self):
+        for m, name, fn in self.targets:
+            setattr(m, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, name, _), fn in zip(self.targets, self.saved):
+            setattr(m, name, fn)
+        return False
+
+
+def _check_step_launches(tag: str, cfg, tcfg, launches: dict) -> None:
+    """Fail unless each counted kernel of ``cfg``'s train step launched
+    layers x microbatches x (1 + remat) times and nothing else ran."""
+    want = {k: n * tcfg.accum_steps * (1 + cfg.remat)
+            for k, n in _train_kernels(cfg).items()}
+    got = {k: n for k, n in launches.items() if n}
+    if got != want:
+        raise RuntimeError(f"{tag}: launches {got}, expected {want}")
+
+
+def _state_parts(state) -> dict:
+    return {"params": state.params, "mu": state.opt.mu,
+            "nu": state.opt.nu, "err": state.err or {}}
+
+
+def _state_gap(card, cpu) -> dict:
+    """For each part of two train states (params, mu, nu, err), over all
+    its elements: the largest |card - cpu| and the share within
+    :data:`STATE_TOL`."""
+    out = {}
+    a, b = _state_parts(card), _state_parts(cpu)
+    for part, leaves in a.items():
+        worst, near, n = 0.0, 0, 0
+        for k, v in leaves.items():
+            d = (v.float() - b[part][k].to(v.device).float()).abs()
+            worst = max(worst, d.max().item())
+            near += int((d <= STATE_TOL).sum().item())
+            n += d.numel()
+        if n:
+            out[part] = {"max": worst, "share": near / n}
+    return out
+
+
+def _copy_state(src, dst) -> None:
+    """Overwrite train state ``dst`` in place with ``src``'s values."""
+    into = _state_parts(dst)
+    for part, leaves in _state_parts(src).items():
+        for k, v in leaves.items():
+            into[part][k].copy_(v)
+    dst.opt.step.copy_(src.opt.step)
+
+
+def train_smoke_on_card(card: str) -> dict:
+    """Phase 4f: every smoke config but llama3-405b's (head_dim 8, which
+    no kernel takes: its train step must raise on the card) trains 3
+    steps on the card and on the CPU from the same parameters and
+    batches (accum 2, int8 error-feedback compression), each step from
+    the card's state on both: each step's loss and grad_norm within
+    2e-5 abs / 2e-4 rel, the updated params, moments and error buffer
+    within :data:`STATE_MAX` with :data:`STATE_SHARE` of each within
+    :data:`STATE_TOL`, each counted kernel
+    launched layers x microbatches x 2 (remat) times a step and no plain
+    version.  Then the reference's resume test on the card (smoke
+    stablelm): 12 steps, against a run preempted at step 7 and resumed
+    from its step-5 checkpoint, every resumed loss within rtol 1e-6.
+    Returns the launches of the card's runs."""
+    import tempfile
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.training import compression, data, optimizer
+    from repro_torch.training import train_loop as tl
+    t0 = time.perf_counter()
+    tcfg = tl.TrainConfig(opt=optimizer.OptimizerConfig(**TRAIN_SMOKE_OPT),
+                          accum_steps=2,
+                          compression=compression.CompressionConfig(
+                              enabled=True))
+    total: dict = {}
+    for arch in configs.ARCHS:
+        cfg = configs.get_smoke_config(arch)
+        cpu = tl.init_state(torch.Generator().manual_seed(0), cfg, tcfg)
+        to_card = lambda d: {k: v.cuda() for k, v in d.items()}  # noqa
+        card_state = tl.TrainState(
+            to_card(cpu.params), optimizer.OptState(
+                cpu.opt.step.clone(), to_card(cpu.opt.mu),
+                to_card(cpu.opt.nu)), to_card(cpu.err))
+        dcfg = data.DataConfig(batch=4, seq_len=32, seed=0)
+        batches = [data.make_batch(cfg, dcfg, i)
+                   for i in range(TRAIN_SMOKE_STEPS)]
+        if arch == "llama3-405b":
+            ops.reset_launches()
+            try:
+                tl.make_train_step(cfg, tcfg, "cuda")(card_state, batches[0])
+            except ValueError as e:
+                if "head_dim 8" not in str(e) or any(ops.launches.values()):
+                    raise
+                log(f"[4f] llama3-405b smoke train step (head_dim 8) raises "
+                    f"from the launcher on the card: {e}")
+                continue
+            raise RuntimeError("llama3-405b smoke model trained on the card "
+                               "at head_dim 8")
+        # each step starts both devices from the card's state: Adam's
+        # normalized first steps turn a last-bit difference of a
+        # near-zero gradient into lr, which would compound over steps
+        states = {"cpu": cpu, "cuda": card_state}
+        steps, runs, gaps = {}, {}, {}
+        for dev in states:
+            with train_spy() as spy:
+                steps[dev] = tl.make_train_step(cfg, tcfg, dev)
+            runs[dev] = spy.steps            # each step's record
+        for i, b in enumerate(batches):
+            for dev in states:
+                states[dev], _ = steps[dev](states[dev], b)
+            c, g = runs["cpu"][-1], runs["cuda"][-1]
+            for k in ("loss", "grad_norm"):
+                if not math.isclose(g[k], c[k], rel_tol=2e-4,
+                                    abs_tol=2e-5):
+                    raise RuntimeError(f"4f {arch} step {i}: {k} card "
+                                       f"{g[k]!r} cpu {c[k]!r}")
+            _check_step_launches(f"4f {arch} step {i}", cfg, tcfg,
+                                 g["launches"])
+            for k, n in g["launches"].items():
+                total[k] = total.get(k, 0) + n
+            for part, gap in _state_gap(states["cuda"],
+                                        states["cpu"]).items():
+                if gap["max"] > STATE_MAX or gap["share"] < STATE_SHARE:
+                    raise RuntimeError(f"4f {arch} step {i}: {part} card vs "
+                                       f"cpu {gap}")
+                was = gaps.get(part, {"max": 0.0, "share": 1.0})
+                gaps[part] = {"max": max(was["max"], gap["max"]),
+                              "share": min(was["share"], gap["share"])}
+            _copy_state(states["cuda"], states["cpu"])
+        worst = max(abs(g[k] - c[k]) / abs(c[k]) for c, g in zip(
+            runs["cpu"], runs["cuda"]) for k in ("loss", "grad_norm"))
+        log(f"[4f] {arch} smoke: {TRAIN_SMOKE_STEPS} train steps on cuda == "
+            f"cpu (largest relative difference {worst:.2e}); updated state "
+            f"card vs cpu, worst step, largest |d| and share within "
+            f"{STATE_TOL:g}: {gaps} (<= {STATE_MAX:g}, >= {STATE_SHARE}); "
+            f"losses "
+            f"{[s['loss'] for s in runs['cuda']]}, grad_norm "
+            f"{[s['grad_norm'] for s in runs['cuda']]}; launches a step "
+            f"{ {k: n for k, n in runs['cuda'][0]['launches'].items() if n} }")
+
+    # the reference's resume test (tests/test_fault_tolerance.py:71-95)
+    cfg = configs.get_smoke_config("stablelm-1.6b")
+    dcfg = data.DataConfig(batch=4, seq_len=32, seed=0)
+
+    def trainer(d, hook=None):
+        rcfg = tl.TrainConfig(opt=optimizer.OptimizerConfig(
+            peak_lr=1e-3, warmup_steps=4, total_steps=12))
+        return tl.Trainer(cfg, rcfg, tl.LoopConfig(
+            total_steps=12, ckpt_dir=d, ckpt_every=5),
+            lambda s: data.stream(cfg, dcfg, s), fault_hook=hook,
+            device="cuda")
+
+    def hook(step):
+        if step == 7 and not getattr(hook, "fired", False):
+            hook.fired = True
+            raise tl.PreemptionError("simulated node loss")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full = trainer(f"{tmp}/a").run()["history"]
+        try:
+            trainer(f"{tmp}/b", hook).run()
+        except tl.PreemptionError:
+            pass
+        else:
+            raise RuntimeError("4f: the fault hook did not fire")
+        again = trainer(f"{tmp}/b")
+        if again.start_step != 5:
+            raise RuntimeError(f"4f: resumed at {again.start_step}, not 5")
+        resumed = again.run()["history"]
+    tail = [h for h in full if h["step"] > 5]
+    if [h["step"] for h in resumed] != [h["step"] for h in tail] or any(
+            not math.isclose(a["loss"], b["loss"], rel_tol=1e-6, abs_tol=0)
+            for a, b in zip(resumed, tail)):
+        raise RuntimeError(f"4f resume: {resumed} vs {tail}")
+    worst = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(resumed, tail))
+    log(f"[4f] resume on the card: preempted at step 7, resumed from step "
+        f"5, steps 6-12 losses within rtol {worst:.2e} of the uninterrupted "
+        f"run (<= 1e-6); phase wall {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+    return total
+
+
+def _train_breakdown(prof, n: int) -> dict:
+    """Device ms a step (``n`` profiled) by category: ``K1`` (the
+    kernel, wherever launched), ``attention_vjp``, ``ce`` and
+    ``optimizer`` (the kernels launched under their :data:`TRAIN_SPANS`
+    range, and for ``ce`` also by the backward nodes of the ops run
+    there, matched by sequence number), ``gemm`` (the other matrix
+    products, by kernel name) and ``rest``."""
+    import torch
+    CUDA = torch.autograd.DeviceType.CUDA
+    spans = {v: k for k, v in TRAIN_SPANS.items()}
+    events = prof.events()
+    total = k1 = 0.0
+    for e in events:
+        if e.device_type == CUDA and e.name not in spans and not getattr(
+                e, "is_user_annotation", False):
+            total += e.time_range.elapsed_us()
+            if "flash_fwd" in e.name:
+                k1 += e.time_range.elapsed_us()
+
+    def span_of(e):
+        while e is not None:
+            if e.name in spans:
+                return spans[e.name]
+            e = e.cpu_parent
+        return None
+
+    # (forward thread, sequence nr) of the ops run in a span -> the span;
+    # their backward nodes carry the same pair
+    seq_span = {}
+    for e in events:
+        if e.device_type != CUDA and e.sequence_nr >= 0 and \
+                "Backward" not in e.name:
+            s = span_of(e)
+            if s is not None:
+                seq_span.setdefault((e.thread, e.sequence_nr), s)
+    out = dict.fromkeys(("K1", *TRAIN_SPANS, "gemm", "rest"), 0.0)
+    out["K1"] = k1
+    for e in events:
+        if e.device_type == CUDA or not e.kernels:
+            continue
+        s = span_of(e)
+        if s is None:                 # a backward node of a spanned op?
+            p = e
+            while p is not None and s is None:
+                if "Backward" in p.name:
+                    s = seq_span.get((p.fwd_thread, p.sequence_nr))
+                p = p.cpu_parent
+        for kern in e.kernels:
+            if "flash_fwd" in kern.name:
+                continue
+            us = kern.duration
+            out[s or ("gemm" if _GEMM.search(kern.name) else "rest")] += us
+    attributed = sum(out.values())
+    out["rest"] += total - attributed          # kernels no op claimed
+    out = {k: v / 1e3 / n for k, v in out.items()}
+    out["total"] = total / 1e3 / n
+    return out
+
+
+def train_full_on_card(card: str) -> dict:
+    """Phase 5o: full-width stablelm-1.6b (bf16, seeded on the card)
+    trains 6 steps through ``launch/train.py``'s ``main`` (batch 8 of
+    2048 tokens, accum 2, as ``train_preset`` gives; no checkpoints).
+    Fails unless every loss is finite, the first in (1, 20) and the last
+    below the first, K1 launched 24 x 2 x 2 = 96 times a step and no
+    plain version ran, and a control passes: the first step's grad_norm
+    recomputed from the same initial state and batch with every
+    attention forward through the plain version agrees within
+    :data:`CONTROL_GRAD_RTOL` relative (its loss within
+    :data:`CONTROL_LOSS_RTOL`, a sanity check, not a kernel check).  Prints the step wall and device time, the device time by
+    category (one more step under the profiler), tokens/s, the peak
+    memory beside the reckoning, and 6 N tokens / step time as a share
+    of the dense-bf16 peak.  Returns K1's launches over the 6 steps."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import presets, roofline, train
+    from repro_torch.training import data
+    from repro_torch.training import train_loop as tl
+    t0 = time.perf_counter()
+    cfg = configs.get_config("stablelm-1.6b")
+    preset = presets.train_preset(cfg, 8)
+    if preset.accum_steps != 2 or preset.opt.moment_dtype != torch.float32:
+        raise RuntimeError(f"5o: train_preset(stablelm, 8) is {preset}, not "
+                           f"accum 2 with float32 moments")
+    n_params = cfg.param_count()
+    gb = 1e9
+    reckon = {"params": 2 * n_params / gb, "grads": 2 * n_params / gb,
+              "moments": 8 * n_params / gb, "accumulator": 4 * n_params / gb}
+    B, S, accum = 8, 2048, 2
+    vjp_gb = 6 * (B // accum) * cfg.num_heads * S * S * 4 / gb
+    log(f"[5o] stablelm-1.6b full width: {n_params / 1e9:.3f} B params bf16, "
+        f"train {' '.join(TRAIN_FULL_ARGS)}; reckoned GB {reckon}, "
+        f"attention-VJP transient ~{vjp_gb:.1f} GB (six (B,H,S,T) float32 "
+        f"tensors)")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with train_spy() as spy:
+        trainer = train.main(TRAIN_FULL_ARGS)
+    peak = torch.cuda.max_memory_allocated() / gb
+    steps = spy.steps
+    losses = [s["loss"] for s in steps]
+    if len(steps) != 6 or not all(math.isfinite(x) for x in losses) or not (
+            1.0 < losses[0] < 20.0) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"5o: losses {losses}")
+    for i, s in enumerate(steps):
+        _check_step_launches(f"5o step {i + 1}", cfg, trainer.tcfg,
+                             s["launches"])
+    k1 = sum(s["launches"]["flash_attention"] for s in steps)
+    walls = trainer.step_times
+    med = statistics.median(walls[1:])
+    tokens = B * S
+    flops = 6.0 * n_params * tokens
+    mfu = flops / med / roofline.H100_SXM5.peak_flops
+    log(f"[5o] losses {losses}; grad_norm "
+        f"{[s['grad_norm'] for s in steps]}; K1 launches a step "
+        f"{[s['launches']['flash_attention'] for s in steps]}, plain 0")
+    log(f"[5o] step walls s {walls}; median of steps 2-6 {med:.4f} s; "
+        f"tokens/s {tokens / med:.1f}; 6 N tokens / step {flops / med / 1e12:.1f}"
+        f" TFLOP/s = {100 * mfu:.2f}% of the dense-bf16 peak "
+        f"({roofline.H100_SXM5.name}); peak memory "
+        f"{peak:.2f} GB (max_memory_allocated) beside the reckoned "
+        f"{sum(reckon.values()):.2f} GB of state + ~{vjp_gb:.1f} GB VJP "
+        f"transient ({card})")
+
+    # one more step under the profiler, its device time by category
+    dcfg = data.DataConfig(seed=0, batch=B, seq_len=S)
+    batch = data.make_batch(cfg, dcfg, 6)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with train_spy(spans=True) as spy_p:
+        step = tl.make_train_step(cfg, trainer.tcfg, "cuda")
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            trainer.state, _ = step(trainer.state, batch)
+            torch.cuda.synchronize()
+    split = _train_breakdown(prof, 1)
+    if split["total"] <= 0:
+        raise RuntimeError("5o: the profiler recorded no device activity")
+    log(f"[5o] device ms of one step by category: " + json.dumps(
+        {k: round(v, 3) for k, v in split.items()}) + f"; device busy "
+        f"{100 * split['total'] / 1e3 / med:.1f}% of the median step wall")
+
+    # the control: step 1 again from the same initial state and batch,
+    # every attention forward through the plain version
+    tcfg = trainer.tcfg
+    del trainer, step, spy_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = tl.init_state(torch.Generator(device="cuda").manual_seed(0),
+                          cfg, tcfg)
+    kernel_forward = ops._flash_forward
+
+    def plain(q, k, v, q_pos, kv_pos, causal, window, softcap):
+        return ref.flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                   window=window, softcap=softcap)
+
+    ops._flash_forward = plain
+    try:
+        with train_spy() as spy_c:
+            tl.make_train_step(cfg, tcfg, "cuda")(
+                state, data.make_batch(cfg, dcfg, 0))
+    finally:
+        ops._flash_forward = kernel_forward
+    ctl = spy_c.steps[0]
+    rel = {k: abs(steps[0][k] - ctl[k]) / abs(ctl[k])
+           for k in ("loss", "grad_norm")}
+    if rel["grad_norm"] > CONTROL_GRAD_RTOL or rel["loss"] > \
+            CONTROL_LOSS_RTOL or any(ctl["launches"].values()):
+        raise RuntimeError(f"5o control: kernel step 1 {steps[0]}, plain "
+                           f"attention {ctl}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[5o] control: step 1 with every attention forward through the "
+        f"plain version: loss {ctl['loss']!r} grad_norm "
+        f"{ctl['grad_norm']!r}; relative differences from the kernel's "
+        f"run {rel} (grad_norm <= {CONTROL_GRAD_RTOL:g}, the kernel check; "
+        f"loss <= {CONTROL_LOSS_RTOL:g}, a sanity check); phase wall "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    return {"launches": k1, "steps": len(steps), "step_wall_s": med,
+            "device_ms": split}
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -3067,6 +3556,17 @@ def _k4_row(key, launches, gen, flush, shape_launches=None) -> dict:
         **({} if shape_launches is None else
            {"shape_launches": shape_launches}),
         "shape": f"B={B} S={S} H={H} D={D} float32"}
+
+
+def timing_train(launches_5o: int) -> dict:
+    """Phase 6's K1 row at stablelm-1.6b's training microbatch (B = 4,
+    S = T = 2048, 32/32 heads, D = 64, bf16), with its launches in 5o."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    key = ((4, 2048, 32, 64), (4, 2048, 32, 64))
+    return {**_k1_row(key, {"flash_attention": launches_5o}, gen, flush),
+            "case": "stablelm-1.6b training microbatch (5o)"}
 
 
 def _stablelm_prompts(n, gen):
@@ -3601,6 +4101,7 @@ def main() -> int:
                                            "paged_decode_attention"),
                        paged=True)
     smoke_tp_on_card()                                 # phase 4e
+    train_smoke_launches = train_smoke_on_card(card)   # phase 4f
     cfg, params = full_model("stablelm-1.6b")
     shapes: dict = {}
     launches = serve_full(cfg, params, shapes)
@@ -3653,6 +4154,8 @@ def main() -> int:
     tp_launches = serve_qwen25_tp(qcfg, qparams, card, tp_shapes, qw_summary)
     del qparams
     free_card("qwen2.5-14b")
+    train_5o = train_full_on_card(card)                # phase 5o
+    free_card("5o")
     rows, hy_rows, rw_rows, more, moe_rows = timing(
         shapes, launches, hy_shapes, hy_launches, hcfg.sliding_window,
         rw_shapes, rw_launches, moe_shapes, moe_launches, qw_shapes,
@@ -3668,6 +4171,8 @@ def main() -> int:
             row["launches_5n_b"] = tp_chain_launches[row["name"]]
         row["launches_5h"] = mig_launches.get(row["name"], 0)
         row["launches_5l"] = hp_launches.get(row["name"], 0)
+        row["launches_4f"] = train_smoke_launches.get(row["name"], 0)
+    rows.append(timing_train(train_5o["launches"]))
     log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")
     log(f"[time-rwkv6] {json.dumps({'k4_rwkv6': rw_rows})}")
     log(f"[time-more] {json.dumps({'buckets_and_edge': more})}")

@@ -30,4 +30,5 @@ def smoke_config() -> ModelConfig:
         num_layers=3, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=128, vocab_size=256, ssm_state=4, ssm_expand=2, ssm_conv=4,
         sliding_window=16, global_layers=(1,),
-        param_dtype=torch.float32, compute_dtype=torch.float32)
+        param_dtype=torch.float32, compute_dtype=torch.float32,
+        ce_chunk=16)

@@ -26,4 +26,5 @@ def smoke_config() -> ModelConfig:
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=128, vocab_size=256, qkv_bias=True, frontend="vision",
         num_patches=8,
-        param_dtype=torch.float32, compute_dtype=torch.float32)
+        param_dtype=torch.float32, compute_dtype=torch.float32,
+        ce_chunk=16)

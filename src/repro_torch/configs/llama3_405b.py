@@ -26,4 +26,5 @@ def smoke_config() -> ModelConfig:
         name=ARCH + "-smoke", family="dense",
         num_layers=2, d_model=64, num_heads=8, num_kv_heads=2, head_dim=8,
         d_ff=160, vocab_size=256, activation="swiglu",
-        param_dtype=torch.float32, compute_dtype=torch.float32)
+        param_dtype=torch.float32, compute_dtype=torch.float32,
+        ce_chunk=16)

@@ -30,4 +30,5 @@ def smoke_config() -> ModelConfig:
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=96, moe_d_ff=96, vocab_size=256, num_experts=4, top_k=2,
         sliding_window=16,
-        param_dtype=torch.float32, compute_dtype=torch.float32)
+        param_dtype=torch.float32, compute_dtype=torch.float32,
+        ce_chunk=16)

@@ -24,4 +24,5 @@ def smoke_config() -> ModelConfig:
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
         d_ff=96, moe_d_ff=96, vocab_size=256, num_experts=8,
         num_shared_experts=2, top_k=2, shared_d_ff=192, qkv_bias=True,
-        param_dtype=torch.float32, compute_dtype=torch.float32)
+        param_dtype=torch.float32, compute_dtype=torch.float32,
+        ce_chunk=16)

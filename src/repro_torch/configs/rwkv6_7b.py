@@ -23,4 +23,5 @@ def smoke_config() -> ModelConfig:
         name=ARCH + "-smoke", family="rwkv6",
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
         head_dim=16, rwkv_head_dim=16, d_ff=128, vocab_size=256,
-        param_dtype=torch.float32, compute_dtype=torch.float32)
+        param_dtype=torch.float32, compute_dtype=torch.float32,
+        ce_chunk=16)

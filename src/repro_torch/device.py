@@ -8,7 +8,7 @@ raises, and the CPU is used only when the caller passes
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -28,14 +28,17 @@ def resolve(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
-def check_fits(cfg, device: torch.device) -> None:
-    """Raise when ``cfg``'s parameters alone outgrow the card's memory
-    (mixtral-8x7b at full width is 93.4 GB in bf16; the card has 80)."""
+def check_fits(cfg, device: torch.device, need: Optional[int] = None,
+               what: str = "parameters") -> None:
+    """Raise when ``need`` bytes (default: ``cfg``'s parameters) outgrow
+    the card's memory (mixtral-8x7b at full width is 93.4 GB in bf16;
+    the card has 80).  ``what`` names them in the message."""
     if device.type != "cuda":
         return
-    need = cfg.param_count() * torch.finfo(cfg.param_dtype).bits // 8
+    if need is None:
+        need = cfg.param_count() * torch.finfo(cfg.param_dtype).bits // 8
     have = torch.cuda.get_device_properties(device).total_memory
     if need > have:
         raise SystemExit(
-            f"{cfg.name}: {need / 1e9:.2f} GB of parameters do not fit the "
-            f"card's {have / 1e9:.2f} GB; serve its smoke config instead")
+            f"{cfg.name}: {need / 1e9:.2f} GB of {what} do not fit the "
+            f"card's {have / 1e9:.2f} GB; use its smoke config instead")

@@ -12,9 +12,12 @@ actually ran it (plain integers; :func:`reset_launches` zeroes them), so
 a run can show which path the model took.
 
 K1, K4 and K5 sit inside a :class:`torch.autograd.Function` whose
-backward recomputes through the plain version, as ``custom_vjp`` does in
-the reference (``repro/kernels/ops.py:39-62, 92-131``); serving never
-takes it.
+backward recomputes through the plain version and differentiates it, as
+``custom_vjp`` does in the reference (``repro/kernels/ops.py:39-62,
+92-131``): training takes it, serving never does.  The backward calls
+:mod:`~repro_torch.kernels.ref` directly, so it counts no launch; every
+forward on a card, the recompute of a rematerialized layer included,
+launches the kernel and counts one.
 """
 
 from __future__ import annotations

@@ -4,8 +4,11 @@ The counterpart of ``repro/kernels/ref.py``: the O(S^2) materialized
 attention score oracle with the positional mask, float32 accumulation and
 fully masked rows zeroed (``:18-51``), the literal WKV6 recurrence
 (``:54-66``) and the sequential selective-SSM recurrence (``:69-80``).  The CPU tests run these; on the card
-``chip_smoke.py`` holds the CUDA kernels against them.  Nothing on the
-main path calls them when the tensors live on a card.
+``chip_smoke.py`` holds the CUDA kernels against them.  On a card no
+forward of the main path calls them: every forward launches the kernel.
+Training's backward of K1, K4 and K5 differentiates these plain
+versions (:mod:`repro_torch.kernels.ops`), as the reference's
+``custom_vjp`` differentiates its oracles.
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ model dim ("embed") over "data" (the memory-safe layout of the largest
 architectures).  Divisibility fallbacks happen in
 :meth:`repro_torch.sharding.AxisRules.spec`.
 
-The activation rules, cache and batch layouts and the train-state
-tables come with training, which is not ported.
+Training is ported unsharded (``repro_torch.training``); the activation
+rules, the cache and batch layouts and the train-state tables come with
+sharded training.
 """
 
 from __future__ import annotations

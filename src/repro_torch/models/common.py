@@ -1,5 +1,5 @@
 """Shared model substrate: config, param tables, norms, rotary embeddings,
-activations and the token embedding.
+activations, the token embedding and the memory-safe cross-entropy.
 
 The counterpart of ``repro/models/common.py``.  Parameters live in a flat
 dict ``{path: tensor}`` under the reference's keys, and per-layer
@@ -20,6 +20,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 Params = Dict[str, torch.Tensor]
 
@@ -27,7 +28,13 @@ Params = Dict[str, torch.Tensor]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyperparameters (the subset of the reference's config
-    that the ported families read) with torch dtypes."""
+    that the ported families read) with torch dtypes.
+
+    The reference's XLA-path and sharding knobs (``attn_chunk``,
+    ``q_chunk``, ``scan_layers``, ``scan_layers_train``, the ``opt_*``
+    toggles, ``use_pallas`` and ``fsdp``) have no counterpart: the port
+    loops over layers in Python, picks its kernels by the tensors'
+    device and does not shard its training state."""
 
     name: str = "model"
     family: str = "dense"
@@ -75,6 +82,13 @@ class ModelConfig:
 
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+
+    # training
+    remat: bool = True               # recompute each layer in the backward
+    # recompute groups of this many layers (each layer inside recomputed
+    # again), where num_layers % remat_group == 0
+    remat_group: int = 1
+    ce_chunk: int = 512              # sequence chunk of the CE loss
 
     @property
     def ssm_d_inner(self) -> int:
@@ -263,5 +277,61 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    """Input embedding lookup."""
-    return embed[tokens].to(compute_dtype)
+    """Input embedding lookup.  ``F.embedding`` rather than indexing: its
+    backward on the card sums each row's gradients in a fixed order (a
+    sort, then a segmented sum), where indexing's accumulates with
+    atomics, so a train step is repeatable."""
+    return F.embedding(tokens, embed).to(compute_dtype)
+
+
+# --------------------------------------------------------------------------
+# Memory-safe cross-entropy (sequence-chunked; never keeps (B,S,V))
+# --------------------------------------------------------------------------
+
+
+def _chunk_xent(xc: torch.Tensor, w32: torch.Tensor,
+                lc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's (sum of masked token losses, token count), float32:
+    xc (B,c,d), w32 (V,d) float32, lc (B,c) (negative = masked)."""
+    logits = xc.float() @ w32.t()                             # (B,c,V)
+    lse = torch.logsumexp(logits, dim=-1)                     # (B,c)
+    # the reference contracts a one-hot of the label; every other term of
+    # that sum is an exact zero, so a gather of the label's logit equals it
+    correct = logits.gather(-1, lc.clamp_min(0).long()[..., None])[..., 0]
+    mask = (lc >= 0).float()
+    return ((lse - correct) * mask).sum(), mask.sum()
+
+
+def chunked_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
+                         labels: torch.Tensor, chunk: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean token cross-entropy of ``x @ w_out.T`` against ``labels``
+    (``repro/models/common.py:297-351``).
+
+    x: (B,S,d) final hidden states; w_out: (V,d); labels: (B,S), negative
+    labels masked out; S is padded up to a multiple of ``chunk`` with
+    label -1.  Returns (mean_loss, token_count), float32 scalars.  Each
+    chunk's (B, chunk, V) float32 logits live only inside that chunk:
+    under autograd the chunk runs under ``torch.utils.checkpoint``, so
+    its backward recomputes them instead of keeping them."""
+    B, S, d = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:                             # masked labels: loss-neutral
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    w32 = w_out.float()
+    grad = torch.is_grad_enabled() and (x.requires_grad or w32.requires_grad)
+    loss_sum = x.new_zeros((), dtype=torch.float32)
+    count = x.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, S + pad, chunk):
+        xc, lc = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if grad:
+            part, n = torch.utils.checkpoint.checkpoint(
+                _chunk_xent, xc, w32, lc, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            part, n = _chunk_xent(xc, w32, lc)
+        loss_sum = loss_sum + part
+        count = count + n
+    return loss_sum / count.clamp_min(1.0), count

@@ -44,10 +44,10 @@ def param_table(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 def hymba_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Cache], mode: str,
                 rows: Optional[torch.Tensor] = None, rope=None,
-                paging=None, layer_idx: Optional[int] = None
-                ) -> torch.Tensor:
+                paging=None, layer_idx: Optional[int] = None):
     """cache = this layer's {"k", "v", "pos" (attention), "h", "conv"
-    (SSM)} views, written in place, or None."""
+    (SSM)} views, written in place, or None (train: the zero state, and
+    the layer returns (x, {}))."""
     if cache is not None:
         attn_cache = {k: cache[k] for k in ("k", "v", "pos")}
         state = {"h": cache["h"], "conv": cache["conv"]}
@@ -61,7 +61,8 @@ def hymba_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     fused = 0.5 * (rms_norm(a, p["attn_out_norm/scale"], cfg.norm_eps)
                    + rms_norm(s, p["ssm_out_norm/scale"], cfg.norm_eps))
     x = x + fused
-    return x + transformer.mlp_block(cfg, p, x)
+    x = x + transformer.mlp_block(cfg, p, x)
+    return (x, {}) if mode == "train" else x
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

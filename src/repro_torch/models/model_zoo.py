@@ -4,6 +4,7 @@ The counterpart of ``repro/models/model_zoo.py``::
 
     param_table(cfg)                   -> {path: ParamSpec}
     init(cfg, generator)               -> params (on the generator's device)
+    loss(cfg, params, batch)           -> (loss, metrics)   # train step body
     prefill(cfg, params, batch, cache, lengths=None) -> (last_logits, cache)
     decode(cfg, params, cache, tokens, t, active=None, page_tables=None,
            paged=())                   -> (logits, cache)
@@ -63,6 +64,10 @@ def param_table(cfg: ModelConfig) -> Dict[str, common.ParamSpec]:
 def init(cfg: ModelConfig, generator: torch.Generator) -> Params:
     """Seeded parameters, drawn on ``generator.device``."""
     return common.init_params(param_table(cfg), cfg.param_dtype, generator)
+
+
+def loss(cfg: ModelConfig, params: Params, batch):
+    return transformer.loss_fn(cfg, params, batch, family(cfg).layer_fn)
 
 
 def prefill(cfg: ModelConfig, params: Params, batch, cache, lengths=None):

@@ -188,9 +188,13 @@ def moe_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
               positions: torch.Tensor, cache, mode: str,
               rows: Optional[torch.Tensor] = None, rope=None,
               paging: Optional[transformer.Paging] = None,
-              layer_idx: Optional[int] = None) -> torch.Tensor:
-    """Attention then the routed FFN (serving needs no aux losses)."""
+              layer_idx: Optional[int] = None):
+    """Attention then the routed FFN; in mode ``train`` also its aux
+    losses (serving needs none)."""
     x = x + transformer.attention_block(cfg, p, x, positions, cache, mode,
                                         rows, rope=rope, paging=paging,
                                         layer_idx=layer_idx)
+    if mode == "train":
+        y, aux = moe_ffn(cfg, p, x)
+        return x + y, aux
     return x + _routed_ffn(cfg, p, x, "moe/")[0]

@@ -113,8 +113,12 @@ def _token_shift(h: torch.Tensor, x_prev: torch.Tensor,
     return torch.cat([x_prev, h[:, :-1]], dim=1)
 
 
-def _write(state: State, new: State, rows: Optional[torch.Tensor]) -> None:
-    """Overwrite the state views in place (only at ``rows``, when given)."""
+def _write(state: State, new: State, rows: Optional[torch.Tensor],
+           mode: str) -> None:
+    """Overwrite the state views in place (only at ``rows``, when given;
+    never in train, which keeps no state)."""
+    if mode == "train":
+        return
     for name, value in new.items():
         value = value.to(state[name].dtype)
         if rows is None:
@@ -155,7 +159,7 @@ def time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor, state: State,
     else:
         y, s_new = ops.rwkv6_scan(rf, kf, vf, lw, u,
                                   state["s"].float().contiguous())
-    _write(state, {"x": h[:, -1], "s": s_new}, rows)
+    _write(state, {"x": h[:, -1], "s": s_new}, rows, mode)
 
     # per-head group norm, then the silu gate, in float32
     mu = y.mean(dim=-1, keepdim=True)
@@ -179,22 +183,24 @@ def channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor, state: State,
     kh = torch.square(F.relu(xk @ p["cm/wk"].to(h.dtype)))
     kv = kh @ p["cm/wv"].to(h.dtype)
     rgate = torch.sigmoid(xr @ p["cm/wr"].to(h.dtype))
-    _write(state, {"x": h[:, -1]}, rows)
+    _write(state, {"x": h[:, -1]}, rows, mode)
     return rgate * kv
 
 
 def rwkv_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
                positions: torch.Tensor, cache: Optional[State], mode: str,
                rows: Optional[torch.Tensor] = None, rope=None, paging=None,
-               layer_idx: Optional[int] = None) -> torch.Tensor:
+               layer_idx: Optional[int] = None):
     """cache = this layer's {"tm_x" (B,d), "tm_s" (B,H,D,D), "cm_x" (B,d)}
-    views, written in place, or None.  ``positions``, ``rope``, ``paging``
-    and ``layer_idx`` are the layer signature's and go unused."""
+    views, written in place, or None (train: the zero state, and the
+    layer returns (x, {})).  ``positions``, ``rope``, ``paging`` and
+    ``layer_idx`` are the layer signature's and go unused."""
     st = cache if cache is not None else init_layer_state(
         cfg, x.shape[0], x.device)
     x = x + time_mix(cfg, p, x, {"x": st["tm_x"], "s": st["tm_s"]}, mode,
                      rows)
-    return x + channel_mix(cfg, p, x, {"x": st["cm_x"]}, mode, rows)
+    x = x + channel_mix(cfg, p, x, {"x": st["cm_x"]}, mode, rows)
+    return (x, {}) if mode == "train" else x
 
 
 def init_layer_state(cfg: ModelConfig, batch: int, device=None) -> State:

@@ -72,7 +72,7 @@ def ssm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, state: State,
               prefix: str = "ssm/") -> torch.Tensor:
     """x: (B,S,d) -> (B,S,d).  ``state`` = {"h": (B,I,N) float32, "conv":
     (B,K-1,I)} is read and then overwritten with the new state (in decode
-    only at the row indices ``rows``, when given)."""
+    only at the row indices ``rows``, when given; in train not at all)."""
     g = lambda k: p[prefix + k]                                # noqa: E731
     zx = x @ g("in_proj").to(x.dtype)                          # (B,S,2I)
     z, xin = zx.chunk(2, dim=-1)                               # (B,S,I) each
@@ -93,7 +93,9 @@ def ssm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, state: State,
         hs, h = ops.ssd_scan(a, b, state["h"])
         y_core = torch.einsum("bsin,bsn->bsi", hs, Cmat)
     conv_new = conv_new.to(state["conv"].dtype)
-    if rows is None:
+    if mode == "train":
+        pass                            # training keeps no state
+    elif rows is None:
         state["h"].copy_(h)
         state["conv"].copy_(conv_new)
     else:

@@ -26,8 +26,15 @@ an optional per-row ``active`` mask: rows outside it are not written, so
 their cache stays bit-for-bit as it was — the contract the reference's
 engine gets from ``jnp.where(active, new, old)``.
 
-Modes: ``prefill`` (full sequence, fills the cache) and ``decode`` (one
-token per row against the cache).  Training is not ported yet.
+Modes: ``prefill`` (full sequence, fills the cache), ``decode`` (one
+token per row against the cache) and ``train`` (full sequence, no cache;
+:func:`loss_fn`).  In ``train`` a layer function returns ``(x, aux)``,
+its scalar metrics (MoE's ``moe_aux`` and ``router_z``), and
+:func:`forward` returns ``(x, aux summed over layers)``; prefill and
+decode return ``x`` alone, as before.  With ``cfg.remat`` each layer (or
+group of ``cfg.remat_group`` layers) runs under
+``torch.utils.checkpoint``: the backward recomputes it from its input, so
+kernel K1 runs twice a layer in a train step.
 
 Decode also runs against a **paged pool**
 (``model_zoo.init_paged_pool``): each paged stack as (n, P+1, page,
@@ -47,12 +54,14 @@ from __future__ import annotations
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention
 from repro_torch.models.common import (ModelConfig, ParamSpec, Params,
                                        activate, apply_norm, apply_rope,
-                                       embed_tokens, layer_slice, norm_specs,
-                                       rope_tables, stack_layers)
+                                       chunked_softmax_xent, embed_tokens,
+                                       layer_slice, norm_specs, rope_tables,
+                                       stack_layers)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -251,14 +260,15 @@ def dense_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Cache], mode: str,
                 rows: Optional[torch.Tensor] = None,
                 rope=None, paging: Optional["Paging"] = None,
-                layer_idx: Optional[int] = None) -> torch.Tensor:
+                layer_idx: Optional[int] = None):
     x = x + attention_block(cfg, p, x, positions, cache, mode, rows,
                             rope=rope, paging=paging, layer_idx=layer_idx)
-    return x + mlp_block(cfg, p, x)
+    x = x + mlp_block(cfg, p, x)
+    return (x, {}) if mode == "train" else x
 
 
 #: a family's layer function: (cfg, p, x, positions, layer_cache, mode,
-#: rows, rope, paging, layer_idx) -> x
+#: rows, rope, paging, layer_idx) -> x, or (x, aux) in mode "train"
 LayerFn = Callable[..., torch.Tensor]
 
 
@@ -270,7 +280,10 @@ def forward(cfg: ModelConfig, params: Params, embeds: torch.Tensor,
     """Run the layer stack (a loop over the stacked ``layers`` axis);
     layer i reads and writes its slices of every cache leaf
     (:func:`layer_caches`); ``paging`` goes to the layers whose attention
-    stack lives in the page pool."""
+    stack lives in the page pool.  Mode ``train`` returns (x, aux sums)
+    (:func:`_train_forward`)."""
+    if mode == "train":
+        return _train_forward(cfg, params, embeds, positions, layer_fn)
     stacked, _ = layer_slice(params)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     views = layer_caches(cfg, cache) if cache is not None else None
@@ -285,6 +298,52 @@ def forward(cfg: ModelConfig, params: Params, embeds: torch.Tensor,
                      views[i] if views is not None else None, mode, rows,
                      rope, paging if i in paged_layers else None, i)
     return x
+
+
+def _train_forward(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                   positions: torch.Tensor, layer_fn: LayerFn):
+    """The layer stack without a cache, recomputed in the backward as
+    ``cfg.remat`` and ``cfg.remat_group`` say (the reference's
+    ``repro/models/transformer.py:287-327``).  Returns (x, the layers'
+    aux metrics summed in layer order).
+
+    Each layer reads its weights through one ``unbind`` of every stacked
+    leaf, so the backward stacks a leaf's per-layer gradients once
+    instead of adding a full-size zero-padded copy per layer."""
+    stacked, _ = layer_slice(params)
+    per_layer = {k: v.unbind(0) for k, v in stacked.items()}
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+    def layer(i, x, aux):
+        p = {k: v[i] for k, v in per_layer.items()}
+        x, a = layer_fn(cfg, p, x, positions, None, "train", None, rope,
+                        None, i)
+        if a:               # a new dict: a recompute sees the old one
+            aux = {k: aux.get(k, 0.0) + v for k, v in a.items()}
+        return x, aux
+
+    def remat(fn, *args):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+    L = cfg.num_layers
+    G = cfg.remat_group if cfg.remat else 1
+    aux: Dict[str, torch.Tensor] = {}
+    if G > 1 and L % G == 0:
+        # two levels: the stack keeps only each group's input, and the
+        # group's recompute keeps only each of its layers' inputs
+        def group(first, x, aux):
+            for i in range(first, first + G):
+                x, aux = remat(layer, i, x, aux)
+            return x, aux
+
+        for first in range(0, L, G):
+            x, aux = remat(group, first, x, aux)
+    else:
+        for i in range(L):
+            x, aux = (remat(layer, i, x, aux) if cfg.remat
+                      else layer(i, x, aux))
+    return x, aux
 
 
 # --------------------------------------------------------------------------
@@ -328,6 +387,30 @@ def output_head(cfg: ModelConfig, params: Params,
     x = apply_norm(cfg, params, "final_norm", x)
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return x.float() @ w.float().t()
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            layer_fn: LayerFn = dense_layer):
+    """Mean-token CE over the batch (``batch["labels"]``: the next tokens,
+    -1 masked; a vision prefix carries no labels) and its metrics:
+    ``loss`` (the CE alone), ``tokens`` and each aux metric averaged over
+    layers.  The returned loss adds ``router_aux_coef * moe_aux``
+    (``repro/models/transformer.py:380-396``)."""
+    emb, positions = assemble_embeds(cfg, params, batch)
+    x, aux = forward(cfg, params, emb, positions, None, "train",
+                     layer_fn=layer_fn)
+    x = apply_norm(cfg, params, "final_norm", x)
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    labels = batch["labels"]
+    if x.shape[1] != labels.shape[1]:          # vision prefix: no labels
+        x = x[:, x.shape[1] - labels.shape[1]:]
+    loss, count = chunked_softmax_xent(x, w, labels, cfg.ce_chunk)
+    metrics = {"loss": loss, "tokens": count}
+    if aux:
+        for k, v in aux.items():
+            metrics[k] = v / cfg.num_layers
+        loss = loss + cfg.router_aux_coef * metrics.get("moe_aux", 0.0)
+    return loss, metrics
 
 
 def cache_groups(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:

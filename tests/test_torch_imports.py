@@ -128,6 +128,20 @@ def test_serve_launcher_runs_on_cpu_and_refuses_missing_card(no_card):
     assert res.returncode != 0 and "device='cuda'" in res.stderr
 
 
+def test_train_launcher_runs_on_cpu_and_refuses_missing_card(no_card):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "stablelm-1.6b", "--smoke", "--steps", "3", "--batch", "4",
+           "--seq", "32"]
+    res = subprocess.run(cmd + ["--device", "cpu"], capture_output=True,
+                         text=True, env=env, timeout=300, cwd=REPO)
+    assert res.returncode == 0, res.stderr
+    assert "steps=3 first_loss=" in res.stdout
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=300, cwd=REPO)
+    assert res.returncode != 0 and "device='cuda'" in res.stderr
+
+
 def test_endpoint_refuses_params_on_another_device():
     from repro_torch.serving.engine import Endpoint
     cfg, params = _smoke()
