@@ -69,6 +69,17 @@ Phases, each raising on failure (the script then exits non-zero):
    reference's resume test on the card (smoke stablelm, 12 steps,
    preempted at 7, resumed from step 5): every resumed loss within rtol
    1e-6 of the uninterrupted run's;
+4g. sharded training at smoke width, single-controller over a (2, 2)
+   mesh of ``forced_devices(4)`` on the one card: the int8 ring
+   (``ring_allreduce_int8``, 4 members) and ``allreduce_compressed`` on
+   the card bit for bit the CPU's, the ring the int32 sum; the smoke
+   stablelm, hymba and qwen2-moe configs take 2 sharded steps (accum 2,
+   int8 compression, 4f's optimizer) on the card and on the CPU from
+   one state, each step from the card's: loss and grad_norm within 2e-5
+   abs / 2e-4 rel, the joined state within 4f's gate, K1 (and hymba's
+   K5) launched layers x microbatches x 2 replicas x 2 (remat) times a
+   step; stablelm's sharded state saved and restored onto a (4, 1) mesh
+   bit for bit;
 5. the dense main path: full-width stablelm-1.6b (bf16, seeded random
    weights drawn on the card) served by ``repro_torch.platform.Continuum``
    over a 2-tier edge -> cloud continuum (edge 2 slots, cloud 16,
@@ -89,9 +100,9 @@ Phases, each raising on failure (the script then exits non-zero):
    drains balanced, holding only registry-pinned pages;
 5d. the hymba main path: full-width hymba-1.5b (bf16, 1.97 B parameters,
    seeded random weights drawn on the card) served by the continuum over
-   edge 2 slots and cloud 16 (max_len 2048, policy auto), 40 requests of
-   32 new tokens ramped over 8 rounds, prompts of 64..512 tokens (the
-   lengths the SSM scan's rule admits) and four of 1024, whose 29
+   edge 2 slots and cloud 16 (max_len 2048, policy auto), 24 requests of
+   32 new tokens ramped over 6 rounds, prompts of 64..512 tokens (the
+   lengths the SSM scan's rule admits) and three of 1024, whose 29
    sliding-window layers wrap their 1024-wide rolling caches while the 3
    global layers do not.  Fails unless every request is served with 32
    tokens, K1, K2 and K5 launched (K5 once a layer a prefill call) and no
@@ -162,7 +173,7 @@ Phases, each raising on failure (the script then exits non-zero):
 5j. (after 5e, its weights freed) the MoE main path: full-width
    qwen2-moe-a2.7b (bf16, 14.3 B parameters, seeded random weights drawn
    on the card): (a) phase 5's 2-tier continuum (edge 2 slots, cloud 16,
-   max_len 1024, auto), 40 requests of 32 new tokens, prompts of 64, 128,
+   max_len 1024, auto), 24 requests of 32 new tokens, prompts of 64, 128,
    256, 384 and 512 tokens; (c) its cloud endpoint's 512-token prefill
    and 16-row decode step, wall, device time, busy share and device time
    by category (attention kernels, routed expert products, shared
@@ -233,6 +244,19 @@ Phases, each raising on failure (the script then exits non-zero):
    by category (K1, the attention VJP, GEMMs, CE, optimizer, rest; the
    profiler), tokens/s, the peak memory beside its reckoning and 6 N
    tokens / step time as a share of the dense-bf16 peak;
+5p. (after 5o, alone on the card) full-width stablelm-1.6b, 2 steps of
+   5o's batches (8 x 2048 tokens, accum 2, remat) through the unsharded
+   step and, as a control, at accum 4 (bf16 gradients of two rows
+   summed, as the sharded step's replicas give them), then, the states
+   kept on the host and the card freed, through the sharded step over a
+   (2, 2) mesh on the one card from the same initial state: loss and
+   grad_norm within 2e-3 relative, the joined mu and nu within 4f's
+   gate, the bf16 params within 4f's largest |d| and with no more than
+   twice the control's share moved by more than 1e-6, K1 192 launches a
+   step (24 layers x 2 microbatches x 2 replicas x 2); prints the step
+   walls, the first step's device time by category (the profiler; the
+   second step's wall runs without it), the bytes the gathers and
+   reductions would move on a real mesh, and the peak memory;
 5g. the paper's four FaaS bodies (matmult n=256, image_proc 128,
    random_io 2^16, mixed 128) on the card, each against its CPU run on
    the same drawn tensors (1e-4 abs / 1e-4 rel), timed with CUDA events;
@@ -247,7 +271,8 @@ Phases, each raising on failure (the script then exits non-zero):
    at a qwen2.5-14b tp-2 shard's shapes with their launches from 5n (a),
    and K1 at stablelm-1.6b's training microbatch with its launches from
    5o, ``"case"`` naming each; the main-path rows also carry their
-   launches in 4f, ``launches_4f``).  Each row also
+   launches in 4f, ``launches_4f``, and every row its launches in 4g
+   and 5p, ``launches_4g`` and ``launches_5p``).  Each row also
    gives the kernel's and the library call's time on the device alone
    (``device_ms``, ``library_device_ms``: the card kept busy while the
    host enqueues) and the host's time to enqueue the kernel
@@ -1408,8 +1433,9 @@ def smoke_tp_on_card() -> None:
 SCAN_PROMPTS = (64, 100, 128, 256, 384, 512)
 LONG_PROMPT = 1024                  # past hymba's 1024-token window
 RECURRENT_MAX_LEN = 2048
-RECURRENT_ROUNDS = (2, 3, 4, 5, 6, 6, 7, 7)         # 40 requests
-RECURRENT_LONG_RIDS = (3, 12, 22, 33)               # 1024-token prompts
+# 24 requests (40 until the sharded-training phases needed the time)
+RECURRENT_ROUNDS = (2, 3, 4, 5, 5, 5)
+RECURRENT_LONG_RIDS = (3, 12, 22)                   # 1024-token prompts
 PREFILL_KERNELS = ("flash_attention", "rwkv6_scan", "ssd_scan")
 KERNEL_TAGS = {"flash_attention": "K1", "decode_attention": "K2",
                "paged_decode_attention": "K3", "rwkv6_scan": "K4",
@@ -2475,7 +2501,7 @@ def _describe(tag: str, cfg, params) -> None:
 
 def serve_moe(cfg, params, card: str) -> tuple:
     """Phase 5j: full-width qwen2-moe-a2.7b.  (a) the 2-tier continuum
-    (edge 2 slots, cloud 16, max_len 1024, auto), 40 requests of 32 new
+    (edge 2 slots, cloud 16, max_len 1024, auto), 24 requests of 32 new
     tokens, prompts from ``MOE_PROMPTS``, K1 and K2 alone; (c) its cloud
     endpoint's 512-token prefill and 16-row decode step, device time by
     category (attention kernels, routed expert products, shared experts,
@@ -2834,7 +2860,8 @@ CONTROL_GRAD_RTOL, CONTROL_LOSS_RTOL = 2e-3, 2e-2
 TRAIN_FULL_ARGS = ["--arch", "stablelm-1.6b", "--batch", "8", "--seq",
                    "2048", "--accum", "2", "--warmup", "2", "--steps", "6"]
 TRAIN_SPANS = {"attention_vjp": "train.attention_vjp",
-               "ce": "train.ce", "optimizer": "train.optimizer"}
+               "ce": "train.ce", "optimizer": "train.optimizer",
+               "gather": "train.gather"}
 _GEMM = re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)
 
 
@@ -2851,11 +2878,13 @@ def _train_kernels(cfg) -> dict:
 class train_spy:
     """Within the block, every train step that ``make_train_step`` builds
     records its loss, ``grad_norm`` and the kernel launches it made
-    (``steps``), and, given ``spans``, the attention VJP, the CE chunks
-    and the optimizer run under ``torch.profiler.record_function`` ranges
+    (``steps``), and, given ``spans``, the attention VJP, the CE chunks,
+    the optimizer (one-device or block by block) and the sharded step's
+    weight gathers run under ``torch.profiler.record_function`` ranges
     (:data:`TRAIN_SPANS`; the package carries no profiling hooks)."""
 
     def __init__(self, spans: bool = False):
+        from repro_torch import placement
         from repro_torch.kernels import ops
         from repro_torch.models import common
         from repro_torch.training import optimizer, train_loop
@@ -2870,7 +2899,12 @@ class train_spy:
                  self._span(common._chunk_xent, TRAIN_SPANS["ce"])),
                 (optimizer, "apply_updates",
                  self._span(optimizer.apply_updates,
-                            TRAIN_SPANS["optimizer"]))]
+                            TRAIN_SPANS["optimizer"])),
+                (optimizer, "update_leaf",
+                 self._span(optimizer.update_leaf,
+                            TRAIN_SPANS["optimizer"])),
+                (placement, "join",
+                 self._span(placement.join, TRAIN_SPANS["gather"]))]
         self.saved = [m.__dict__[n] for m, n, _ in self.targets]
         self.make = train_loop.make_train_step
 
@@ -2896,6 +2930,7 @@ class train_spy:
                 "launches": {k: n - before[k]
                              for k, n in ops.launches.items()}})
             return state, metrics
+        run.__dict__.update(step.__dict__)     # the sharded step's traffic
         return run
 
     def __enter__(self):
@@ -3088,8 +3123,8 @@ def train_smoke_on_card(card: str) -> dict:
 
 def _train_breakdown(prof, n: int) -> dict:
     """Device ms a step (``n`` profiled) by category: ``K1`` (the
-    kernel, wherever launched), ``attention_vjp``, ``ce`` and
-    ``optimizer`` (the kernels launched under their :data:`TRAIN_SPANS`
+    kernel, wherever launched), ``attention_vjp``, ``ce``, ``optimizer``
+    and ``gather`` (the kernels launched under their :data:`TRAIN_SPANS`
     range, and for ``ce`` also by the backward nodes of the ops run
     there, matched by sequence number), ``gemm`` (the other matrix
     products, by kernel name) and ``rest``."""
@@ -3270,6 +3305,358 @@ def train_full_on_card(card: str) -> dict:
         f"{time.perf_counter() - t0:.1f} s ({card})")
     return {"launches": k1, "steps": len(steps), "step_wall_s": med,
             "device_ms": split}
+
+
+# ------------------------------------------------------- phases 4g and 5p
+
+# phase 4g: the sharded step at smoke width, (2, 2) on the one card
+SHARDED_SMOKE_ARCHS = ("stablelm-1.6b", "hymba-1.5b", "qwen2-moe-a2.7b")
+SHARDED_STEPS = 2
+# phase 5p: full-width stablelm-1.6b, 5o's batches and optimizer, sharded
+# over (2, 2) against the unsharded step; loss and grad_norm relative
+SHARDED_FULL_RTOL = 2e-3
+
+
+def _sharded_launches(cfg, tcfg, replicas: int) -> dict:
+    """The counted kernels a sharded step launches: each data replica
+    runs every layer of every microbatch, twice with remat."""
+    return {k: n * tcfg.accum_steps * replicas * (1 + cfg.remat)
+            for k, n in _train_kernels(cfg).items()}
+
+
+def _placed_batch(batch: dict, mesh) -> dict:
+    from repro_torch import placement
+    from repro_torch.launch import sharding as shd
+    specs = shd.batch_shardings(batch, mesh)
+    return {k: placement.place(v, specs[k], mesh) for k, v in batch.items()}
+
+
+def _same(a, b) -> bool:
+    """Bit for bit: the same dtype and values, compared on the host."""
+    import torch
+    return a.dtype == b.dtype and bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def train_sharded_smoke_on_card(card: str) -> dict:
+    """Phase 4g: (a) ``ring_allreduce_int8`` and ``allreduce_compressed``
+    over 4 members on the card, bit for bit the CPU's results, the ring
+    the int32 sum; (b) the sharded train step (``make_train_step(...,
+    mesh=)``, a (2, 2) mesh over ``forced_devices(4)``) of the smoke
+    stablelm, hymba and qwen2-moe (its load balance over the global
+    batch) configs, 2 steps each on the card and on the CPU from the same
+    state and batches (accum 2, int8 compression, 4f's optimizer), each
+    step from the card's state: loss and grad_norm within 2e-5 abs / 2e-4
+    rel, the joined params, moments and error buffer within 4f's state
+    gate, each counted kernel launched layers x microbatches x 2 data
+    replicas x 2 (remat) times a step and nothing else; (c) stablelm's
+    sharded state saved and restored onto a (4, 1) mesh, bit for bit.
+    Returns the card's launches."""
+    import tempfile
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as shd
+    from repro_torch.training import checkpoint, compression, data, optimizer
+    from repro_torch.training import train_loop as tl
+    t0 = time.perf_counter()
+
+    # (a) the collectives
+    gen = torch.Generator().manual_seed(7)
+    xs = [torch.randint(-127, 128, (4096, 64), generator=gen).to(torch.int8)
+          for _ in range(4)]
+    wire: dict = {}
+    cpu_sum = compression.ring_allreduce_int8(xs)
+    card_sum = compression.ring_allreduce_int8([x.cuda() for x in xs], wire)
+    want = sum(x.to(torch.int32) for x in xs)
+    if not all(_same(c, w) and _same(g, w)
+               for c, g, w in zip(cpu_sum, card_sum, [want] * 4)):
+        raise RuntimeError("4g: the ring's sum differs between the card, "
+                           "the CPU and the int32 sum")
+    grads = [{"w": torch.randn(2048, 64, generator=gen) * s,
+              "b": torch.randn(333, generator=gen)} for s in (1, 3, .5, 2)]
+    errs = [{k: torch.randn(v.shape, generator=gen) * 0.01
+             for k, v in g.items()} for g in grads]
+    ccfg = compression.CompressionConfig(enabled=True)
+    cuda = lambda d: {k: v.cuda() for k, v in d.items()}  # noqa: E731
+    mc, ec = compression.allreduce_compressed(grads, errs, ccfg)
+    mg, eg = compression.allreduce_compressed(
+        [cuda(g) for g in grads], [cuda(e) for e in errs], ccfg)
+    if not all(_same(a[k], b[k]) for x, y in ((mc, mg), (ec, eg))
+               for a, b in zip(x, y) for k in a):
+        raise RuntimeError("4g: allreduce_compressed differs between the "
+                           "card and the CPU")
+    log(f"[4g] ring_allreduce_int8 over 4 members of (4096, 64) int8: card "
+        f"== cpu == the int32 sum, bitwise; its hops copied "
+        f"{wire['wire_bytes']} bytes, {wire['wire_bytes'] // 4} a member "
+        f"(2 x 3 int32 chunks; the reference's docstring counts "
+        f"{2 * 3 * 4096 // 4 * 64} int8 bytes a member); "
+        f"allreduce_compressed means and errors card == cpu, bitwise")
+
+    # (b) the sharded step, card against CPU
+    tcfg = tl.TrainConfig(opt=optimizer.OptimizerConfig(**TRAIN_SMOKE_OPT),
+                          accum_steps=2,
+                          compression=compression.CompressionConfig(
+                              enabled=True))
+    with mesh_mod.forced_devices(4):
+        meshes = {"cuda": mesh_mod.make_mesh((2, 2), ("data", "model")),
+                  "cpu": mesh_mod.make_mesh((2, 2), ("data", "model"),
+                                            mesh_mod.host_devices("cpu"))}
+        mesh41 = mesh_mod.make_mesh((4, 1), ("data", "model"))
+    total: dict = {}
+    keep = None
+    for arch in SHARDED_SMOKE_ARCHS:
+        cfg = configs.get_smoke_config(arch)
+        sh = shd.train_state_shardings(cfg, meshes["cuda"], compression=True)
+        init = tl.init_state(torch.Generator().manual_seed(0), cfg, tcfg)
+        states = {d: tl.place_state(init, sh, m) for d, m in meshes.items()}
+        steps, runs, gaps = {}, {}, {}
+        for d, m in meshes.items():
+            with train_spy() as spy:
+                steps[d] = tl.make_train_step(cfg, tcfg, mesh=m)
+            runs[d] = spy.steps
+        dcfg = data.DataConfig(batch=4, seq_len=32, seed=0)
+        want = _sharded_launches(cfg, tcfg, 2)
+        for i in range(SHARDED_STEPS):
+            b = data.make_batch(cfg, dcfg, i)
+            for d, m in meshes.items():
+                states[d], _ = steps[d](states[d], _placed_batch(b, m))
+            c, g = runs["cpu"][-1], runs["cuda"][-1]
+            for k in ("loss", "grad_norm"):
+                if not math.isclose(g[k], c[k], rel_tol=2e-4,
+                                    abs_tol=2e-5):
+                    raise RuntimeError(f"4g {arch} step {i}: {k} card "
+                                       f"{g[k]!r} cpu {c[k]!r}")
+            got = {k: n for k, n in g["launches"].items() if n}
+            if got != want:
+                raise RuntimeError(f"4g {arch} step {i}: launches {got}, "
+                                   f"expected {want}")
+            for k, n in got.items():
+                total[k] = total.get(k, 0) + n
+            joined = tl.join_state(states["cuda"])
+            for part, gap in _state_gap(
+                    joined, tl.join_state(states["cpu"], "cpu")).items():
+                if gap["max"] > STATE_MAX or gap["share"] < STATE_SHARE:
+                    raise RuntimeError(f"4g {arch} step {i}: {part} card vs "
+                                       f"cpu {gap}")
+                was = gaps.get(part, {"max": 0.0, "share": 1.0})
+                gaps[part] = {"max": max(was["max"], gap["max"]),
+                              "share": min(was["share"], gap["share"])}
+            states["cpu"] = tl.place_state(tl.join_state(states["cuda"],
+                                                         "cpu"), sh,
+                                           meshes["cpu"])
+        if keep is None:
+            keep = (cfg, states["cuda"])
+        log(f"[4g] {arch} smoke, sharded over (2, 2) on the card: "
+            f"{SHARDED_STEPS} steps card == cpu (loss "
+            f"{[r['loss'] for r in runs['cuda']]}, grad_norm "
+            f"{[r['grad_norm'] for r in runs['cuda']]}); joined state card "
+            f"vs cpu, worst step: {gaps} (<= {STATE_MAX:g}, >= "
+            f"{STATE_SHARE}); launches a step {want}; traffic of the card's "
+            f"run {steps['cuda'].traffic}")
+
+    # (c) a sharded checkpoint restored onto a (4, 1) mesh, bitwise
+    cfg, state = keep
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save(tmp, SHARDED_STEPS, state)
+        back, _ = checkpoint.restore(
+            tmp, SHARDED_STEPS, tl.abstract_state(cfg, tcfg),
+            shardings=shd.train_state_shardings(cfg, mesh41,
+                                                compression=True),
+            mesh=mesh41)
+    a, b = _state_parts(tl.join_state(state)), _state_parts(
+        tl.join_state(back))
+    if not all(_same(v, b[part][k]) for part, leaves in a.items()
+               for k, v in leaves.items()):
+        raise RuntimeError("4g: the (4, 1) restore of the (2, 2) checkpoint "
+                           "differs")
+    log(f"[4g] stablelm smoke: the (2, 2) sharded state saved and restored "
+        f"onto a (4, 1) mesh on the card, every leaf bitwise; phase wall "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    return total
+
+
+def _to_host(state):
+    """A train state's tensors copied to the host."""
+    from repro_torch.training import optimizer
+    from repro_torch.training import train_loop as tl
+
+    def tree(d):
+        return None if d is None else {k: v.to("cpu", copy=True)
+                                       for k, v in d.items()}
+    return tl.TrainState(tree(state.params), optimizer.OptState(
+        state.opt.step.clone(), tree(state.opt.mu), tree(state.opt.nu)),
+        tree(state.err))
+
+
+def _unsharded_run(cfg, tcfg, batches):
+    """The unsharded step's records and final state (on the host) over
+    ``batches`` from the seed-0 state on the card; also that initial
+    state, on the host."""
+    import gc
+
+    import torch
+    from repro_torch.training import train_loop as tl
+    state = tl.init_state(torch.Generator(device="cuda").manual_seed(0),
+                          cfg, tcfg)
+    init = _to_host(state)
+    with train_spy() as spy:
+        step = tl.make_train_step(cfg, tcfg, "cuda")
+    for b in batches:
+        state, _ = step(state, b)
+    out = _to_host(state)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return spy.steps, init, out
+
+
+def train_sharded_full_on_card(card: str) -> dict:
+    """Phase 5p: full-width stablelm-1.6b (bf16, seeded on the card), 2
+    steps of 5o's batches (8 x 2048 tokens, accum 2, remat, 5o's
+    optimizer) through the unsharded step, its losses, grad norms and
+    final state kept on the host; a control, the unsharded step at accum
+    4, which sums bf16 gradients of two rows at a time as the sharded
+    step's two replicas do; then, the card freed, the sharded step over
+    a (2, 2) mesh on the one card from the same initial state.  Fails
+    unless each step's loss and grad_norm agree within
+    :data:`SHARDED_FULL_RTOL` relative, the joined mu and nu (float32)
+    are within 4f's state gate of the unsharded ones (each part's
+    largest |d| <= :data:`STATE_MAX`, :data:`STATE_SHARE` of its
+    elements within :data:`STATE_TOL`; the worst leaf printed), the
+    bf16 params' largest |d| is within :data:`STATE_MAX` and no more of
+    them differ by more than :data:`STATE_TOL` than twice the control's
+    (a bf16 parameter within 1e-6 of another is the same value: once two
+    runs round a gradient differently, Adam's second step moves a share
+    of them by an ulp), and K1 launched 24 layers x 2 microbatches x 2
+    replicas x 2 (remat) = 192 times a step and nothing else.  Prints
+    both steps' walls, the first step's device time by category (it runs
+    under the profiler, the second without), the bytes the gathers and
+    reductions would move on a real mesh, and the peak memory.  Returns
+    K1's launches and the measurements."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch import configs, placement
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as shd
+    from repro_torch.training import data, optimizer
+    from repro_torch.training import train_loop as tl
+    t0 = time.perf_counter()
+    cfg = configs.get_config("stablelm-1.6b")
+    tcfg = tl.TrainConfig(opt=optimizer.OptimizerConfig(
+        peak_lr=3e-4, warmup_steps=2, total_steps=6), accum_steps=2)
+    dcfg = data.DataConfig(seed=0, batch=8, seq_len=2048)
+    batches = [data.make_batch(cfg, dcfg, i) for i in range(2)]
+    ref, host0, host1 = _unsharded_run(cfg, tcfg, batches)
+    ctl, _, ctl_state = _unsharded_run(
+        cfg, dataclasses.replace(tcfg, accum_steps=4), batches)
+    ctl_params = ctl_state.params
+    del ctl_state
+
+    with mesh_mod.forced_devices(4):
+        mesh = mesh_mod.make_mesh((2, 2), ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    state = tl.place_state(host0, shd.train_state_shardings(cfg, mesh),
+                           mesh)
+    del host0
+    with train_spy(spans=True) as spy:
+        step = tl.make_train_step(cfg, tcfg, mesh=mesh)
+        walls, prof = [], None
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        for i, b in enumerate(batches):
+            pb = _placed_batch(b, mesh)
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            if i == 1:
+                state, _ = step(state, pb)
+                torch.cuda.synchronize()
+            else:
+                with torch.profiler.profile(activities=acts) as prof:
+                    state, _ = step(state, pb)
+                    torch.cuda.synchronize()
+            walls.append(time.perf_counter() - w0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    runs = spy.steps
+    want = _sharded_launches(cfg, tcfg, 2)
+    rels = []
+    for i, (r, g) in enumerate(zip(ref, runs)):
+        rel = {k: abs(g[k] - r[k]) / abs(r[k]) for k in ("loss",
+                                                          "grad_norm")}
+        rels.append(rel)
+        if max(rel.values()) > SHARDED_FULL_RTOL:
+            raise RuntimeError(f"5p step {i + 1}: sharded {g}, unsharded "
+                               f"{r} (relative {rel})")
+        got = {k: n for k, n in g["launches"].items() if n}
+        if got != want:
+            raise RuntimeError(f"5p step {i + 1}: launches {got}, expected "
+                               f"{want}")
+
+    def gap(a: dict, b: dict) -> tuple:
+        """(largest |d|, share within STATE_TOL, worst leaf's share and
+        name) of two dicts of leaves (placed ones joined), on the card."""
+        mx, near, n, leaf = 0.0, 0, 0, (2.0, "")
+        for k, v in a.items():
+            v = placement.join(v) if isinstance(v, placement.Placed) \
+                else v.cuda()
+            d = (v.float() - b[k].cuda().float()).abs()
+            mx = max(mx, d.max().item())
+            ok = int((d <= STATE_TOL).sum().item())
+            near, n = near + ok, n + d.numel()
+            leaf = min(leaf, (ok / d.numel(), k))
+            del d
+        return mx, near / n, leaf
+
+    gaps = {}
+    for part, placed, whole in (("mu", state.opt.mu, host1.opt.mu),
+                                ("nu", state.opt.nu, host1.opt.nu)):
+        gaps[part] = gap(placed, whole)
+        if gaps[part][0] > STATE_MAX or gaps[part][1] < STATE_SHARE:
+            raise RuntimeError(f"5p: {part} sharded vs unsharded "
+                               f"{gaps[part]}")
+    gaps["params"] = gap(state.params, host1.params)
+    gaps["params, control"] = gap(ctl_params, host1.params)
+    gaps["params, sharded vs control"] = gap(state.params, ctl_params)
+    moved, moved_ctl = (1 - gaps["params"][1],
+                        1 - gaps["params, control"][1])
+    if gaps["params"][0] > STATE_MAX or moved > 2 * moved_ctl:
+        raise RuntimeError(f"5p: params sharded vs unsharded "
+                           f"{gaps['params']}, control "
+                           f"{gaps['params, control']}")
+    split = _train_breakdown(prof, 1)
+    if split["total"] <= 0:
+        raise RuntimeError("5p: the profiler recorded no device activity")
+    traffic = step.traffic
+    log(f"[5p] stablelm-1.6b full width sharded over (2, 2) on the card "
+        f"(forced_devices(4)): losses {[r['loss'] for r in runs]} vs "
+        f"unsharded {[r['loss'] for r in ref]} (accum-4 control "
+        f"{[r['loss'] for r in ctl]}); grad_norm "
+        f"{[r['grad_norm'] for r in runs]} vs "
+        f"{[r['grad_norm'] for r in ref]} (control "
+        f"{[r['grad_norm'] for r in ctl]}); relative {rels} (<= "
+        f"{SHARDED_FULL_RTOL:g}); K1 launches a step "
+        f"{[r['launches']['flash_attention'] for r in runs]}, plain 0")
+    log(f"[5p] state vs unsharded, (largest |d|, share within "
+        f"{STATE_TOL:g}, worst leaf): {gaps}; mu, nu <= {STATE_MAX:g} and "
+        f">= {STATE_SHARE}; params moved by more than {STATE_TOL:g}: "
+        f"{moved:.6f} of the elements, control {moved_ctl:.6f} (<= 2x)")
+    log(f"[5p] step walls s {walls} (the first under the profiler); "
+        f"device ms of step 1 by category: " + json.dumps(
+            {k: round(v, 3) for k, v in split.items()})
+        + f"; bytes a real (2, 2) mesh would move a step: gathers "
+        f"{traffic['gather_bytes'] / 2 / 1e9:.4f} GB, reductions "
+        f"{traffic['reduce_bytes'] / 2 / 1e9:.4f} GB; peak memory "
+        f"{peak:.2f} GB (max_memory_allocated); phase wall "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    del state, step, host1, ctl_params, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": sum(r["launches"]["flash_attention"] for r in runs),
+            "walls": walls, "device_ms": split, "peak_gb": peak,
+            "traffic": traffic}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -4102,6 +4489,7 @@ def main() -> int:
                        paged=True)
     smoke_tp_on_card()                                 # phase 4e
     train_smoke_launches = train_smoke_on_card(card)   # phase 4f
+    sharded_smoke_launches = train_sharded_smoke_on_card(card)  # phase 4g
     cfg, params = full_model("stablelm-1.6b")
     shapes: dict = {}
     launches = serve_full(cfg, params, shapes)
@@ -4156,6 +4544,8 @@ def main() -> int:
     free_card("qwen2.5-14b")
     train_5o = train_full_on_card(card)                # phase 5o
     free_card("5o")
+    train_5p = train_sharded_full_on_card(card)        # phase 5p
+    free_card("5p")
     rows, hy_rows, rw_rows, more, moe_rows = timing(
         shapes, launches, hy_shapes, hy_launches, hcfg.sliding_window,
         rw_shapes, rw_launches, moe_shapes, moe_launches, qw_shapes,
@@ -4173,6 +4563,10 @@ def main() -> int:
         row["launches_5l"] = hp_launches.get(row["name"], 0)
         row["launches_4f"] = train_smoke_launches.get(row["name"], 0)
     rows.append(timing_train(train_5o["launches"]))
+    for row in rows:
+        row["launches_4g"] = sharded_smoke_launches.get(row["name"], 0)
+        row["launches_5p"] = (train_5p["launches"]
+                              if row["name"] == "flash_attention" else 0)
     log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")
     log(f"[time-rwkv6] {json.dumps({'k4_rwkv6': rw_rows})}")
     log(f"[time-more] {json.dumps({'buckets_and_edge': more})}")

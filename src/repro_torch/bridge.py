@@ -10,7 +10,8 @@ reinterpreted as uint16 and viewed back as ``torch.bfloat16`` (no
 rounding, and no import of ``ml_dtypes``).  :func:`tensor_from_numpy`
 and :func:`tensor_to_numpy` are the port's one copy of that bit format;
 ``training/checkpoint.py`` uses them too.  A train state crosses over
-the same way (:func:`state_from_numpy`, :func:`state_to_numpy`).
+the same way (:func:`state_from_numpy`, :func:`state_to_numpy`), onto a
+device mesh too.
 """
 
 from __future__ import annotations
@@ -69,16 +70,18 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def state_from_numpy(state: Any, cfg: ModelConfig,
-                     device: DeviceLike) -> TrainState:
+def state_from_numpy(state: Any, cfg: ModelConfig, device: DeviceLike,
+                     shardings: Any = None, mesh: Any = None) -> TrainState:
     """The port's :class:`~repro_torch.training.train_loop.TrainState`
     from the reference's, its leaves as numpy arrays
     (``jax.tree.map(np.asarray, state)``): ``state.params``,
     ``state.opt.step``, ``state.opt.mu``, ``state.opt.nu`` and
     ``state.err`` (None without compression).  The step stays on the
-    host, as the port keeps it."""
+    host, as the port keeps it.  With ``shardings`` (specs,
+    ``launch/sharding.train_state_shardings``) and ``mesh`` the leaves
+    are placed on the mesh (``device`` is where they are staged)."""
     from repro_torch.training.optimizer import OptState
-    from repro_torch.training.train_loop import TrainState
+    from repro_torch.training.train_loop import TrainState, place_state
 
     def leaves(flat: Optional[Mapping[str, np.ndarray]]):
         if flat is None:
@@ -88,18 +91,25 @@ def state_from_numpy(state: Any, cfg: ModelConfig,
 
     params = params_from_numpy(state.params, cfg, device)
     step = torch.tensor(int(np.asarray(state.opt.step)), dtype=torch.int32)
-    return TrainState(params, OptState(step, leaves(state.opt.mu),
-                                       leaves(state.opt.nu)),
-                      leaves(state.err))
+    out = TrainState(params, OptState(step, leaves(state.opt.mu),
+                                      leaves(state.opt.nu)),
+                     leaves(state.err))
+    return out if shardings is None else place_state(out, shardings, mesh)
 
 
 def state_to_numpy(state: TrainState) -> Dict[str, Any]:
     """A port train state as numpy: {"params", "step", "mu", "nu", "err"}
-    (:func:`tensor_to_numpy` leaves; ``err`` None without compression)."""
+    (:func:`tensor_to_numpy` leaves, a placed leaf joined first; ``err``
+    None without compression)."""
+    from repro_torch import placement
+
     def leaves(flat):
         if flat is None:
             return None
-        return {k: tensor_to_numpy(v) for k, v in flat.items()}
+        return {k: tensor_to_numpy(placement.join(v, "cpu")
+                                   if isinstance(v, placement.Placed)
+                                   else v)
+                for k, v in flat.items()}
 
     return {"params": leaves(state.params),
             "step": tensor_to_numpy(state.opt.step),

@@ -302,18 +302,19 @@ def _chunk_xent(xc: torch.Tensor, w32: torch.Tensor,
     return ((lse - correct) * mask).sum(), mask.sum()
 
 
-def chunked_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
-                         labels: torch.Tensor, chunk: int
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean token cross-entropy of ``x @ w_out.T`` against ``labels``
-    (``repro/models/common.py:297-351``).
+def xent_sums(x: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor,
+              chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the masked token losses, token count) of ``x @ w_out.T``
+    against ``labels``, float32 scalars: the terms that
+    :func:`chunked_softmax_xent` divides, and that a sharded step sums
+    over its data replicas before it divides.
 
     x: (B,S,d) final hidden states; w_out: (V,d); labels: (B,S), negative
     labels masked out; S is padded up to a multiple of ``chunk`` with
-    label -1.  Returns (mean_loss, token_count), float32 scalars.  Each
-    chunk's (B, chunk, V) float32 logits live only inside that chunk:
-    under autograd the chunk runs under ``torch.utils.checkpoint``, so
-    its backward recomputes them instead of keeping them."""
+    label -1.  Each chunk's (B, chunk, V) float32 logits live only inside
+    that chunk: under autograd the chunk runs under
+    ``torch.utils.checkpoint``, so its backward recomputes them instead
+    of keeping them."""
     B, S, d = x.shape
     chunk = min(chunk, S)
     pad = (-S) % chunk
@@ -334,4 +335,14 @@ def chunked_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
             part, n = _chunk_xent(xc, w32, lc)
         loss_sum = loss_sum + part
         count = count + n
+    return loss_sum, count
+
+
+def chunked_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
+                         labels: torch.Tensor, chunk: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean token cross-entropy of ``x @ w_out.T`` against ``labels``
+    (``repro/models/common.py:297-351``): (mean_loss, token_count),
+    float32 scalars, from :func:`xent_sums`."""
+    loss_sum, count = xent_sums(x, w_out, labels, chunk)
     return loss_sum / count.clamp_min(1.0), count

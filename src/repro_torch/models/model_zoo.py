@@ -5,6 +5,8 @@ The counterpart of ``repro/models/model_zoo.py``::
     param_table(cfg)                   -> {path: ParamSpec}
     init(cfg, generator)               -> params (on the generator's device)
     loss(cfg, params, batch)           -> (loss, metrics)   # train step body
+    loss_terms(cfg, params, batch)     -> the loss's sums (one data replica)
+    combine_loss(cfg, [terms, ...])    -> (loss, metrics) of their rows
     prefill(cfg, params, batch, cache, lengths=None) -> (last_logits, cache)
     decode(cfg, params, cache, tokens, t, active=None, page_tables=None,
            paged=())                   -> (logits, cache)
@@ -38,12 +40,15 @@ class Family(NamedTuple):
     layer_fn: transformer.LayerFn
     table_fn: Callable[[ModelConfig], Dict[str, common.ParamSpec]]
     cache_fn: Callable[..., Dict[str, torch.Tensor]]
+    #: a layer's aux losses from its (replica-summed) aux sums
+    aux_fn: Optional[Callable[[ModelConfig, Dict], Dict]] = None
 
 
 _FAMILIES = {
     "dense": Family(transformer.dense_layer, transformer.param_table,
                     transformer.init_cache),
-    "moe": Family(moe.moe_layer, moe.param_table, transformer.init_cache),
+    "moe": Family(moe.moe_layer, moe.param_table, transformer.init_cache,
+                  moe.aux_from_sums),
     "hymba": Family(hymba.hymba_layer, hymba.param_table, hymba.init_cache),
     "rwkv6": Family(rwkv6.rwkv_layer, rwkv6.param_table, rwkv6.init_cache),
 }
@@ -66,8 +71,49 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> Params:
     return common.init_params(param_table(cfg), cfg.param_dtype, generator)
 
 
+def loss_terms(cfg: ModelConfig, params: Params, batch) -> Dict:
+    """The loss of ``batch``'s rows as sums (``transformer.loss_terms``)."""
+    return transformer.loss_terms(cfg, params, batch, family(cfg).layer_fn)
+
+
+def _sum(parts):
+    """The sum of ``parts`` in order, on the first one's device (a
+    number stays a number)."""
+    out = parts[0]
+    for x in parts[1:]:
+        out = out + (x.to(out.device) if isinstance(x, torch.Tensor) else x)
+    return out
+
+
+def combine_loss(cfg: ModelConfig, terms) -> Tuple[torch.Tensor, Dict]:
+    """(loss, metrics) of the rows of every ``loss_terms`` in ``terms``
+    together: the masked-token mean CE over all their tokens, plus
+    ``router_aux_coef * moe_aux`` with each layer's load balance made
+    from the sums of every part; metrics ``loss`` (the CE alone),
+    ``tokens`` and each aux loss averaged over layers
+    (``repro/models/transformer.py:380-396``).  One part gives the
+    loss of its own rows."""
+    count = _sum([t["tokens"] for t in terms])
+    loss = _sum([t["ce_sum"] for t in terms]) / count.clamp_min(1.0)
+    metrics = {"loss": loss, "tokens": count}
+    aux_fn = family(cfg).aux_fn
+    total: Dict[str, torch.Tensor] = {}
+    for layer in zip(*(t["layers"] for t in terms)):
+        if not layer[0]:
+            continue
+        sums = {k: _sum([a[k] for a in layer]) for k in layer[0]}
+        for k, v in aux_fn(cfg, sums).items():
+            total[k] = total.get(k, 0.0) + v
+    if total:
+        for k, v in total.items():
+            metrics[k] = v / cfg.num_layers
+        loss = loss + cfg.router_aux_coef * metrics.get("moe_aux", 0.0)
+    return loss, metrics
+
+
 def loss(cfg: ModelConfig, params: Params, batch):
-    return transformer.loss_fn(cfg, params, batch, family(cfg).layer_fn)
+    """(loss, metrics) of one batch: the train step's body."""
+    return combine_loss(cfg, [loss_terms(cfg, params, batch)])
 
 
 def prefill(cfg: ModelConfig, params: Params, batch, cache, lengths=None):

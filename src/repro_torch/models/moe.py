@@ -170,18 +170,35 @@ def _routed_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, prefix: str):
     return y, logits, probs, gate_idx
 
 
+def _aux_sums(cfg: ModelConfig, logits: torch.Tensor, probs: torch.Tensor,
+              gate_idx: torch.Tensor) -> Dict:
+    """The aux losses' sums over a group of tokens: router probabilities
+    ``me`` and top-1 assignments ``ce`` per expert, squared logsumexps
+    ``z``, and the token count ``n``; :func:`aux_from_sums` divides
+    them.  A sharded step sums them over its data replicas first: the
+    load-balance loss is not a mean of per-replica losses."""
+    E = cfg.num_experts
+    return {"me": probs.sum(dim=(0, 1)),
+            "ce": F.one_hot(gate_idx[..., 0], E).float().sum(dim=(0, 1)),
+            "z": torch.logsumexp(logits, dim=-1).square().sum(),
+            "n": gate_idx.shape[0] * gate_idx.shape[1]}
+
+
+def aux_from_sums(cfg: ModelConfig, sums: Dict) -> Dict[str, torch.Tensor]:
+    """GShard load balance ``moe_aux = sum(me * ce) * E`` over the means
+    and ``router_z``, as the reference (``repro/models/moe.py:97-101``)."""
+    me, ce = sums["me"] / sums["n"], sums["ce"] / sums["n"]
+    return {"moe_aux": (me * ce).sum() * cfg.num_experts,
+            "router_z": sums["z"] / sums["n"]}
+
+
 def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
             prefix: str = "moe/"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Routed FFN. x: (B, S, d) -> (B, S, d) and the aux losses (GShard
     load balance ``moe_aux`` and ``router_z``), as the reference."""
     y, logits, probs, gate_idx = _routed_ffn(cfg, p, x, prefix)
-    E = cfg.num_experts
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))
-    aux = (me * ce).sum() * E
-    z = torch.logsumexp(logits, dim=-1).square().mean()
-    return y, {"moe_aux": aux, "router_z": z}
+    return y, aux_from_sums(cfg, _aux_sums(cfg, logits, probs, gate_idx))
 
 
 def moe_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -189,12 +206,12 @@ def moe_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
               rows: Optional[torch.Tensor] = None, rope=None,
               paging: Optional[transformer.Paging] = None,
               layer_idx: Optional[int] = None):
-    """Attention then the routed FFN; in mode ``train`` also its aux
-    losses (serving needs none)."""
+    """Attention then the routed FFN; in mode ``train`` also the sums its
+    aux losses are made of (serving needs none)."""
     x = x + transformer.attention_block(cfg, p, x, positions, cache, mode,
                                         rows, rope=rope, paging=paging,
                                         layer_idx=layer_idx)
+    y, logits, probs, gate_idx = _routed_ffn(cfg, p, x, "moe/")
     if mode == "train":
-        y, aux = moe_ffn(cfg, p, x)
-        return x + y, aux
-    return x + _routed_ffn(cfg, p, x, "moe/")[0]
+        return x + y, _aux_sums(cfg, logits, probs, gate_idx)
+    return x + y

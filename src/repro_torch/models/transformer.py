@@ -28,10 +28,12 @@ engine gets from ``jnp.where(active, new, old)``.
 
 Modes: ``prefill`` (full sequence, fills the cache), ``decode`` (one
 token per row against the cache) and ``train`` (full sequence, no cache;
-:func:`loss_fn`).  In ``train`` a layer function returns ``(x, aux)``,
-its scalar metrics (MoE's ``moe_aux`` and ``router_z``), and
-:func:`forward` returns ``(x, aux summed over layers)``; prefill and
-decode return ``x`` alone, as before.  With ``cfg.remat`` each layer (or
+:func:`loss_terms`).  In ``train`` a layer function returns ``(x, aux)``,
+the sums its aux losses are made of (MoE's, ``models/moe.py``), and
+:func:`forward` returns ``(x, [aux of each layer])``; prefill and decode
+return ``x`` alone.  :func:`loss_terms` gives a batch's loss as sums
+(``model_zoo.combine_loss`` divides them), so a sharded step can add the
+sums of its data replicas first.  With ``cfg.remat`` each layer (or
 group of ``cfg.remat_group`` layers) runs under
 ``torch.utils.checkpoint``: the backward recomputes it from its input, so
 kernel K1 runs twice a layer in a train step.
@@ -59,9 +61,9 @@ import torch.utils.checkpoint
 from repro_torch.models import attention
 from repro_torch.models.common import (ModelConfig, ParamSpec, Params,
                                        activate, apply_norm, apply_rope,
-                                       chunked_softmax_xent, embed_tokens,
-                                       layer_slice, norm_specs, rope_tables,
-                                       stack_layers)
+                                       embed_tokens, layer_slice,
+                                       norm_specs, rope_tables,
+                                       stack_layers, xent_sums)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -304,8 +306,8 @@ def _train_forward(cfg: ModelConfig, params: Params, x: torch.Tensor,
                    positions: torch.Tensor, layer_fn: LayerFn):
     """The layer stack without a cache, recomputed in the backward as
     ``cfg.remat`` and ``cfg.remat_group`` say (the reference's
-    ``repro/models/transformer.py:287-327``).  Returns (x, the layers'
-    aux metrics summed in layer order).
+    ``repro/models/transformer.py:287-327``).  Returns (x, the list of
+    each layer's aux dict, in layer order).
 
     Each layer reads its weights through one ``unbind`` of every stacked
     leaf, so the backward stacks a leaf's per-layer gradients once
@@ -314,13 +316,10 @@ def _train_forward(cfg: ModelConfig, params: Params, x: torch.Tensor,
     per_layer = {k: v.unbind(0) for k, v in stacked.items()}
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
-    def layer(i, x, aux):
+    def layer(i, x):
         p = {k: v[i] for k, v in per_layer.items()}
-        x, a = layer_fn(cfg, p, x, positions, None, "train", None, rope,
+        return layer_fn(cfg, p, x, positions, None, "train", None, rope,
                         None, i)
-        if a:               # a new dict: a recompute sees the old one
-            aux = {k: aux.get(k, 0.0) + v for k, v in a.items()}
-        return x, aux
 
     def remat(fn, *args):
         return torch.utils.checkpoint.checkpoint(
@@ -328,21 +327,24 @@ def _train_forward(cfg: ModelConfig, params: Params, x: torch.Tensor,
 
     L = cfg.num_layers
     G = cfg.remat_group if cfg.remat else 1
-    aux: Dict[str, torch.Tensor] = {}
+    aux: List[Dict] = []
     if G > 1 and L % G == 0:
         # two levels: the stack keeps only each group's input, and the
         # group's recompute keeps only each of its layers' inputs
-        def group(first, x, aux):
+        def group(first, x):
+            out = []
             for i in range(first, first + G):
-                x, aux = remat(layer, i, x, aux)
-            return x, aux
+                x, a = remat(layer, i, x)
+                out.append(a)
+            return x, out
 
         for first in range(0, L, G):
-            x, aux = remat(group, first, x, aux)
+            x, a = remat(group, first, x)
+            aux.extend(a)
     else:
         for i in range(L):
-            x, aux = (remat(layer, i, x, aux) if cfg.remat
-                      else layer(i, x, aux))
+            x, a = remat(layer, i, x) if cfg.remat else layer(i, x)
+            aux.append(a)
     return x, aux
 
 
@@ -389,12 +391,14 @@ def output_head(cfg: ModelConfig, params: Params,
     return x.float() @ w.float().t()
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            layer_fn: LayerFn = dense_layer):
-    """Mean-token CE over the batch (``batch["labels"]``: the next tokens,
-    -1 masked; a vision prefix carries no labels) and its metrics:
-    ``loss`` (the CE alone), ``tokens`` and each aux metric averaged over
-    layers.  The returned loss adds ``router_aux_coef * moe_aux``
+def loss_terms(cfg: ModelConfig, params: Params,
+               batch: Dict[str, torch.Tensor],
+               layer_fn: LayerFn = dense_layer) -> Dict:
+    """A batch's loss as the sums it is made of: ``ce_sum`` and
+    ``tokens``, the masked token CE's sum and count
+    (``batch["labels"]``: the next tokens, -1 masked; a vision prefix
+    carries no labels), and ``layers``, each layer's aux sums.
+    ``model_zoo.combine_loss`` makes the loss and its metrics from them
     (``repro/models/transformer.py:380-396``)."""
     emb, positions = assemble_embeds(cfg, params, batch)
     x, aux = forward(cfg, params, emb, positions, None, "train",
@@ -404,13 +408,8 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     labels = batch["labels"]
     if x.shape[1] != labels.shape[1]:          # vision prefix: no labels
         x = x[:, x.shape[1] - labels.shape[1]:]
-    loss, count = chunked_softmax_xent(x, w, labels, cfg.ce_chunk)
-    metrics = {"loss": loss, "tokens": count}
-    if aux:
-        for k, v in aux.items():
-            metrics[k] = v / cfg.num_layers
-        loss = loss + cfg.router_aux_coef * metrics.get("moe_aux", 0.0)
-    return loss, metrics
+    ce_sum, count = xent_sums(x, w, labels, cfg.ce_chunk)
+    return {"ce_sum": ce_sum, "tokens": count, "layers": aux}
 
 
 def cache_groups(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:

@@ -824,7 +824,11 @@ class EdgeCloudContinuum:
         functions through the replication path (fresh reconciler, every
         spec reports changed, redeploy from the stored artifacts) with
         fresh autoscalers at ``min_scale``; the deepest tier redeploys
-        directly (it is the spec source)."""
+        directly (it is the spec source).  A restore of a tier that is
+        up changes nothing, as in the simulator: redeploying would drop
+        its resident rows (the reference does, and loses them)."""
+        if self.tier_up[i]:
+            return
         self.tier_up[i] = True
         if i < len(self.tiers) - 1:
             changed = self.replicators[i].reconcile(self.cloud_specs)

@@ -12,10 +12,12 @@
 * **Self-describing** — the manifest lists every leaf's key, shape and
   dtype; :func:`restore` validates them against a template and fails
   loudly on a mismatch, with the reference's messages.
-* **Mesh-agnostic** — leaves are whole logical arrays; :func:`restore`
-  puts each on ``device`` (or its template leaf's device).  Restoring
-  onto a mesh of several devices belongs to sharded training, not ported
-  yet.
+* **Mesh-agnostic** — leaves are whole logical arrays: :func:`save`
+  joins a leaf placed on a mesh (:mod:`repro_torch.placement`) and
+  writes the whole array, and :func:`restore` puts each leaf on
+  ``device`` (or its template leaf's device), or, given ``shardings``
+  and ``mesh``, splits it onto the mesh's devices.  Source and
+  destination meshes never need to match (elastic resharding).
 
 Leaves are keyed as the reference's ``tree_flatten_with_path`` keys
 them: a NamedTuple's fields by name, a dict's keys in sorted order, a
@@ -40,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import placement
 from repro_torch.bridge import tensor_from_numpy, tensor_to_numpy
 
 PyTree = Any
@@ -91,6 +94,8 @@ def _leaf_filename(key: str) -> str:
 
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """(array to write, manifest dtype); bfloat16 as uint16 bits."""
+    if isinstance(leaf, placement.Placed):
+        leaf = placement.join(leaf, "cpu")
     if isinstance(leaf, torch.Tensor):
         arr = tensor_to_numpy(leaf)
         if leaf.dtype == torch.bfloat16:
@@ -157,13 +162,19 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, step: int, template: PyTree,
-            device=None) -> Tuple[PyTree, Dict]:
+            device=None, shardings: Optional[PyTree] = None,
+            mesh: Any = None) -> Tuple[PyTree, Dict]:
     """Load checkpoint ``step`` into the structure of ``template``.
 
-    ``template``'s leaves are tensors (``meta`` ones will do) giving each
-    leaf's expected shape and dtype; every leaf is cast to its template's
-    dtype and put on ``device``, or, without one, on its template leaf's
-    device.  Returns (tree, extra metadata)."""
+    ``template``'s leaves are tensors (``meta`` ones will do, or placed
+    ones) giving each leaf's expected shape and dtype; every leaf is cast
+    to its template's dtype and put on ``device``, or, without one, on
+    its template leaf's device (the host for a ``meta`` one).
+    ``shardings`` (a tree of specs matching ``template``'s,
+    ``launch/sharding.train_state_shardings``; a None spec leaves its
+    leaf whole) places each leaf on ``mesh`` instead, but a 0-d leaf
+    (the optimizer step) stays on the host, as the port keeps it.
+    Returns (tree, extra metadata)."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -176,7 +187,11 @@ def restore(ckpt_dir: str, step: int, template: PyTree,
                          f"missing={sorted(missing)[:5]} "
                          f"extra={sorted(extra_keys)[:5]}")
 
-    loaded: Dict[str, torch.Tensor] = {}
+    flat_s = _flatten_specs(shardings, template) if shardings is not None \
+        else {}
+    if flat_s and mesh is None:
+        raise ValueError("restoring onto shardings needs their mesh")
+    loaded: Dict[str, Any] = {}
     for key, spec in flat_t.items():
         want = manifest["leaves"][key]
         t = tensor_from_numpy(np.load(os.path.join(d, _leaf_filename(key))),
@@ -187,9 +202,42 @@ def restore(ckpt_dir: str, step: int, template: PyTree,
         if tuple(t.shape) != exp_shape:
             raise ValueError(f"{key}: checkpoint {tuple(t.shape)} vs model "
                              f"{exp_shape}")
-        loaded[key] = t.to(device=device if device is not None
-                           else spec.device, dtype=spec.dtype)
+        if flat_s.get(key) is not None and t.dim() > 0:
+            loaded[key] = placement.place(t.to(spec.dtype), flat_s[key],
+                                          mesh)
+            continue
+        where = torch.device(device if device is not None else (
+            spec.pieces.flat[0].device if isinstance(spec, placement.Placed)
+            else spec.device))
+        if where.type == "meta" or (flat_s and t.dim() == 0):
+            where = torch.device("cpu")       # e.g. the step, on the host
+        loaded[key] = t.to(device=where, dtype=spec.dtype)
     return _unflatten(template, loaded), manifest.get("extra", {})
+
+
+def _flatten_specs(shardings: PyTree, template: PyTree) -> Dict[str, Any]:
+    """{key: spec} of a tree of specs shaped like ``template``: a spec is
+    a tuple, so it is read at the template's leaf positions, not
+    flattened further."""
+    out: Dict[str, Any] = {}
+
+    def walk(spec_tree, tmpl, prefix):
+        if tmpl is None or spec_tree is None:
+            return
+        if isinstance(tmpl, dict):
+            for k in tmpl:
+                walk(spec_tree[k], tmpl[k], f"{prefix}{k}/")
+        elif _is_namedtuple(tmpl):
+            for f in tmpl._fields:
+                walk(getattr(spec_tree, f), getattr(tmpl, f),
+                     f"{prefix}{f}/")
+        elif isinstance(tmpl, (list, tuple)):
+            for i, (a, b) in enumerate(zip(spec_tree, tmpl)):
+                walk(a, b, f"{prefix}{i}/")
+        else:
+            out[prefix[:-1]] = spec_tree
+    walk(shardings, template, "")
+    return out
 
 
 def gc_old(ckpt_dir: str, keep: int = 3) -> None:

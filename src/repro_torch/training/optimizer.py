@@ -93,6 +93,43 @@ def _decay_mask(path: str) -> bool:
     return not (leaf in ("scale", "bias") or leaf.startswith("b"))
 
 
+def step_factors(cfg: OptimizerConfig, step: int) -> Tuple[float, float,
+                                                          float]:
+    """(lr, 1 - b1**step, 1 - b2**step) of update ``step``, float32 on
+    the host."""
+    lr = float(schedule(cfg, step))
+    b1t = float(np.float32(1.0) - np.float32(cfg.b1) ** np.float32(step))
+    b2t = float(np.float32(1.0) - np.float32(cfg.b2) ** np.float32(step))
+    return lr, b1t, b2t
+
+
+def clip_factor(cfg: OptimizerConfig, gnorm: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(cfg.grad_clip / gnorm.clamp_min(1e-9), max=1.0)
+
+
+@torch.no_grad()
+def update_leaf(cfg: OptimizerConfig, path: str, p: torch.Tensor,
+                g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                clip: torch.Tensor, factors: Tuple[float, float, float]
+                ) -> None:
+    """One AdamW step of one parameter (or one block of it), written in
+    place into ``p``, ``mu`` and ``nu``; ``factors`` from
+    :func:`step_factors`."""
+    lr, b1t, b2t = factors
+    g = g.float() * clip
+    m = cfg.b1 * mu.float() + (1 - cfg.b1) * g
+    v = cfg.b2 * nu.float() + (1 - cfg.b2) * g.square()
+    del g
+    upd = (m / b1t) / (torch.sqrt(v / b2t) + cfg.eps)
+    mu.copy_(m)
+    nu.copy_(v)
+    del m, v
+    p32 = p.float()
+    if _decay_mask(path):
+        upd = upd + cfg.weight_decay * p32
+    p.copy_(p32 - lr * upd)
+
+
 @torch.no_grad()
 def apply_updates(cfg: OptimizerConfig, params: Params, grads: Params,
                   state: OptState) -> Tuple[Params, OptState,
@@ -101,25 +138,13 @@ def apply_updates(cfg: OptimizerConfig, params: Params, grads: Params,
     state', info) with the same parameter and moment tensors, updated,
     and info = {"grad_norm", "lr"}."""
     gnorm = global_norm(grads)
-    clip = torch.clamp(cfg.grad_clip / gnorm.clamp_min(1e-9), max=1.0)
+    clip = clip_factor(cfg, gnorm)
     step = int(state.step) + 1
-    lr = float(schedule(cfg, step))
-    b1t = float(np.float32(1.0) - np.float32(cfg.b1) ** np.float32(step))
-    b2t = float(np.float32(1.0) - np.float32(cfg.b2) ** np.float32(step))
+    factors = step_factors(cfg, step)
     for path, p in params.items():
-        g = grads[path].float() * clip
-        mu = cfg.b1 * state.mu[path].float() + (1 - cfg.b1) * g
-        nu = cfg.b2 * state.nu[path].float() + (1 - cfg.b2) * g.square()
-        del g
-        upd = (mu / b1t) / (torch.sqrt(nu / b2t) + cfg.eps)
-        state.mu[path].copy_(mu)
-        state.nu[path].copy_(nu)
-        del mu, nu
-        p32 = p.float()
-        if _decay_mask(path):
-            upd = upd + cfg.weight_decay * p32
-        p.copy_(p32 - lr * upd)
+        update_leaf(cfg, path, p, grads[path], state.mu[path],
+                    state.nu[path], clip, factors)
     info = {"grad_norm": gnorm,
-            "lr": torch.tensor(lr, dtype=torch.float32)}
+            "lr": torch.tensor(factors[0], dtype=torch.float32)}
     return params, OptState(torch.tensor(step, dtype=torch.int32),
                             state.mu, state.nu), info

@@ -142,6 +142,34 @@ def test_train_launcher_runs_on_cpu_and_refuses_missing_card(no_card):
     assert res.returncode != 0 and "device='cuda'" in res.stderr
 
 
+def test_sharded_training_defaults_to_the_card(no_card, tmp_path):
+    """The sharded step's mesh is the host's cards unless devices are
+    given: without a card it cannot be built; the dry run needs no
+    device at all."""
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.launch import sharding as shd
+    from repro_torch.training import train_loop
+    with pytest.raises(ValueError, match="needs 4 devices, got 0"):
+        mesh.make_mesh((2, 2), ("data", "model"))
+    with mesh.forced_devices(4):
+        with pytest.raises(ValueError, match="got 0"):
+            mesh.make_mesh((2, 2), ("data", "model"))
+        cpu = mesh.make_mesh((2, 2), ("data", "model"),
+                             mesh.host_devices("cpu"))
+    cfg, _ = _smoke()
+    tcfg = train_loop.TrainConfig()
+    state = train_loop.place_state(
+        train_loop.init_state(torch.Generator().manual_seed(0), cfg, tcfg),
+        shd.train_state_shardings(cfg, cpu), cpu)
+    assert {p.pieces.flat[0].device.type
+            for p in state.params.values()} == {"cpu"}
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_loop.make_train_step(cfg, tcfg)
+    out = dryrun.main(["--mesh", "single", "--arch", "stablelm-1.6b",
+                       "--shape", "train_4k", "--out-dir", str(tmp_path)])
+    assert out[0]["chips"] == 256
+
+
 def test_endpoint_refuses_params_on_another_device():
     from repro_torch.serving.engine import Endpoint
     cfg, params = _smoke()

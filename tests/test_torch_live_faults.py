@@ -15,7 +15,11 @@ failure, latency, per-tick record, counter and link byte equal:
 * a link fault re-capping a net-aware boundary;
 * the 3-tier chain under ``"auto+net+hedge+migrate"`` from a bursty trace
   with a brownout and an edge outage, conservation and both accounting
-  identities after every tick.
+  identities after every tick;
+* a restore of a tier that is already up (and a crash of one already
+  down): a no-op in the port's live runtime and simulator alike, where
+  the reference's live runtime redeploys the tier and loses its
+  resident row.
 """
 
 import numpy as np
@@ -23,7 +27,10 @@ import pytest
 
 from test_torch_chain import (_bursty, _chain,  # noqa: F401
                               _sequential_reference, deterministic_clock)
-from torch_live import PACKAGES, Pair, migrate_split, two_tier
+from repro.workloads.faults import KINDS
+from repro.workloads.trace import Trace as JTrace
+from repro_torch.workloads.trace import Trace as TTrace
+from torch_live import PACKAGES, Pair, migrate_split, models, two_tier
 
 PROMPT = np.arange(6, dtype=np.int32)
 
@@ -196,3 +203,93 @@ def test_chain_live_controls_under_faults(deterministic_clock, seed):
     assert c("faults_applied") == 4 and c("replayed") >= 1
     assert c("hedges_fired") > 0
     assert all(r.output.shape == (r.max_new,) for r in reqs if not r.failed)
+
+
+def _restore_scenario(k, drop=()):
+    """The case ``tests/test_parity_fuzz.py::test_conservation_under_faults_fuzz``
+    draws at seed 5632, through package ``k`` (0: the reference, 1: the
+    port): one tier of 2 slots, ``"auto+migrate"``, one decode step a
+    tick, a Poisson trace of 21 requests, and two crash / restore pairs
+    on the tier (crash, crash, restore, restore).  The draws are the
+    fuzz test's, in its order.  ``drop`` leaves out the events at those
+    indices.  Returns (the continuum's trace requests, the schedule)."""
+    m = PACKAGES[k]
+    rng = np.random.default_rng(5632 + 77_000)
+    assert int(rng.integers(1, 4)) == 1                  # one tier
+    slots = int(rng.integers(1, 3))
+    topo = m["topo"].Topology(
+        (m["topo"].TierSpec("t0", slots=slots, max_len=32,
+                            queue_depth_per_slot=None),), (),
+        waterfall=bool(rng.uniform() < 0.5))
+    policy = ("auto+migrate" if int(rng.integers(0, 8)) == 6 else None)
+    trace = (JTrace, TTrace)[k].poisson(
+        rps=float(rng.uniform(1.0, 4.0)), duration_s=8.0, fn_names=("fn",),
+        seed=5632, prompt_len=5, max_new=int(rng.integers(1, 5)))
+    events = []
+    for _ in range(int(rng.integers(1, 4))):
+        kind = KINDS[int(rng.integers(0, len(KINDS)))]
+        if kind in ("degrade_link", "partition_link", "restore_link"):
+            continue                            # no link on one tier
+        assert int(rng.integers(0, 1)) == 0     # crash_tier, tier 0
+        t0 = float(rng.uniform(0.0, 4.0))
+        t1 = float(rng.uniform(t0 + 0.5, 6.4))
+        events += [(t0, "crash_tier"), (t1, "restore_tier")]
+    events.sort()
+    f = m["faults"]
+    faults = f.FaultSchedule([f.FaultEvent(t, kind, 0)
+                              for i, (t, kind) in enumerate(events)
+                              if i not in drop])
+    steps = None if rng.uniform() < 0.5 else int(rng.integers(1, 4))
+    cfg_j, pj, cfg_t, pt = models()
+    cc = m["platform"].Continuum.from_topology(
+        topo, policy=policy, seed=5632, trace=trace, faults=faults,
+        max_steps_per_tick=steps, **({} if k == 0 else {"device": "cpu"}))
+    assert (slots, policy, steps) == (2, "auto+migrate", 1)
+    cc.deploy(m["spec"](name="fn", arch="stablelm-1.6b",
+                        autoscaling=m["asc"]()),
+              *((cfg_j, pj), (cfg_t, pt))[k])
+    for _ in range(12):
+        cc.tick()
+    cc.drain()
+    return cc, events
+
+
+def _outcome(cc):
+    return [(r.rid, r.failed, None if r.output is None
+             else np.asarray(r.output).tolist()) for r in cc.trace_requests]
+
+
+def test_restore_of_a_live_tier_loses_nothing():
+    """A restore of a tier that is up is a no-op in the port, live as in
+    the simulator; the reference's live runtime redeploys the tier, frees
+    its resident row's slot in the new pool and loses request 16."""
+    port, events = _restore_scenario(1)
+    ref, _ = _restore_scenario(0)
+    assert [(round(t, 2), kind) for t, kind in events] == [
+        (1.39, "crash_tier"), (2.77, "crash_tier"),
+        (4.23, "restore_tier"), (5.80, "restore_tier")]
+    reqs = port.trace_requests
+    assert len(reqs) == len(ref.trace_requests) == 21
+    for r in reqs:                              # served XOR failed, once
+        assert (r.output is not None) != r.failed, r.rid
+    assert port.metrics.counter("faults_applied") == 4
+    lost = [r.rid for r in ref.trace_requests
+            if r.output is None and not r.failed]
+    assert lost == [16]                         # the reference's defect
+    # the second crash (of a tier that is down) and the second restore
+    # (of a tier that is up) change nothing, live or simulated
+    for drop in ((1,), (3,), (1, 3)):
+        assert _outcome(_restore_scenario(1, drop)[0]) == _outcome(port)
+    m = PACKAGES[1]
+    topo = m["topo"].Topology((m["topo"].TierSpec("t0", slots=2,
+                                                  max_len=32),), ())
+    sims = []
+    for drop in ((), (3,)):
+        f = m["faults"]
+        sched = f.FaultSchedule([f.FaultEvent(t, kind, 0)
+                                 for i, (t, kind) in enumerate(events)
+                                 if i not in drop])
+        r = m["platform"].Continuum.simulate(
+            "matmult", "auto+migrate", topology=topo, faults=sched)
+        sims.append((r.successes, r.failures, r.tier_counts))
+    assert sims[0] == sims[1]

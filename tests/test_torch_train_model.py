@@ -162,8 +162,8 @@ def test_chunked_softmax_xent_matches_reference(S, chunk):
 
 
 def test_serving_modes_return_what_they_did():
-    """Train mode returns (x, aux); prefill and decode still return the
-    hidden states alone."""
+    """Train mode returns (x, each layer's aux sums); prefill and decode
+    still return the hidden states alone."""
     from repro_torch.models import transformer
     _, _, cfg, params = models("qwen2-moe-a2.7b")
     emb = torch.zeros(1, 4, cfg.d_model)
@@ -175,7 +175,8 @@ def test_serving_modes_return_what_they_did():
         y = transformer.forward(cfg, params, emb, pos, cache, "prefill",
                                 layer_fn=t_zoo.family(cfg).layer_fn)
     assert isinstance(y, torch.Tensor) and y.shape == x.shape
-    assert sorted(aux) == ["moe_aux", "router_z"]
+    assert len(aux) == cfg.num_layers
+    assert all(sorted(a) == ["ce", "me", "n", "z"] for a in aux)
     assert torch.equal(x, y)
 
 
