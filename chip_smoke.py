@@ -80,6 +80,15 @@ Phases, each raising on failure (the script then exits non-zero):
    K5) launched layers x microbatches x 2 replicas x 2 (remat) times a
    step; stablelm's sharded state saved and restored onto a (4, 1) mesh
    bit for bit;
+4h. the serve step over a mesh at smoke width
+   (``serving/engine.make_serve_step(..., mesh=)``, single-controller over
+   a (2, 2) mesh of ``forced_devices(4)`` on the one card): the smoke
+   stablelm, hymba, rwkv6 and qwen2-moe configs prefill 4 prompts of 64
+   tokens into a 128-position cache and decode 8 greedy steps; the ids
+   must equal the same step's over a (2, 2) CPU mesh and the unsharded
+   step's on the card, the logits within 2e-2, and the mesh run launch
+   each family kernel (K1, K2; hymba K5, rwkv6 K4) twice as often as the
+   unsharded run (once a data replica) and no plain version;
 5. the dense main path: full-width stablelm-1.6b (bf16, seeded random
    weights drawn on the card) served by ``repro_torch.platform.Continuum``
    over a 2-tier edge -> cloud continuum (edge 2 slots, cloud 16,
@@ -100,8 +109,8 @@ Phases, each raising on failure (the script then exits non-zero):
    drains balanced, holding only registry-pinned pages;
 5d. the hymba main path: full-width hymba-1.5b (bf16, 1.97 B parameters,
    seeded random weights drawn on the card) served by the continuum over
-   edge 2 slots and cloud 16 (max_len 2048, policy auto), 24 requests of
-   32 new tokens ramped over 6 rounds, prompts of 64..512 tokens (the
+   edge 2 slots and cloud 16 (max_len 2048, policy auto), 16 requests of
+   32 new tokens ramped over 5 rounds, prompts of 64..512 tokens (the
    lengths the SSM scan's rule admits) and three of 1024, whose 29
    sliding-window layers wrap their 1024-wide rolling caches while the 3
    global layers do not.  Fails unless every request is served with 32
@@ -257,6 +266,23 @@ Phases, each raising on failure (the script then exits non-zero):
    walls, the first step's device time by category (the profiler; the
    second step's wall runs without it), the bytes the gathers and
    reductions would move on a real mesh, and the peak memory;
+5q. (after 5g, on phase 5's weights) full-width stablelm-1.6b through
+   the serve step over a (2, 2) mesh of ``forced_devices(4)`` on the
+   card against the unsharded step: a prefill of 4 x 2048 tokens, then
+   8 decode steps of 16 rows over a 2048-position cache (6.4 GB) filled
+   by the unsharded step with 2040-token prompts, both fed the unsharded
+   ids.  Fails unless the logits and cache entries equal bit for bit a
+   control, the unsharded step run on each data replica's rows alone, the
+   ids equal the unsharded step's on the whole batch but at near ties
+   (the batch's shape reorders bf16 sums), the bytes each mesh step
+   joined and
+   wrote back equal ``launch/serve_cost.serve_step_counts``' collective
+   bytes for that (2, 2) shape term by term, and K1 launched 48 and K2
+   384 times (24 layers x 2 replicas, x 8 steps) and no plain version;
+   prints the logits' relative L2 to the whole batch's beside the
+   control's, the walls, a prefill's and a decode step's device time
+   both ways and the peak memory.  The kernels rows carry
+   ``launches_4h`` and ``launches_5q``;
 5g. the paper's four FaaS bodies (matmult n=256, image_proc 128,
    random_io 2^16, mixed 128) on the card, each against its CPU run on
    the same drawn tensors (1e-4 abs / 1e-4 rel), timed with CUDA events;
@@ -1433,9 +1459,10 @@ def smoke_tp_on_card() -> None:
 SCAN_PROMPTS = (64, 100, 128, 256, 384, 512)
 LONG_PROMPT = 1024                  # past hymba's 1024-token window
 RECURRENT_MAX_LEN = 2048
-# 24 requests (40 until the sharded-training phases needed the time)
-RECURRENT_ROUNDS = (2, 3, 4, 5, 5, 5)
-RECURRENT_LONG_RIDS = (3, 12, 22)                   # 1024-token prompts
+# 5d and 5e: 16 requests (40 until the sharded-training phases needed the
+# time, 24 until the serve-step phases did)
+RECURRENT_ROUNDS = (2, 3, 4, 4, 3)
+RECURRENT_LONG_RIDS = (3, 8, 13)                    # 1024-token prompts
 PREFILL_KERNELS = ("flash_attention", "rwkv6_scan", "ssd_scan")
 KERNEL_TAGS = {"flash_attention": "K1", "decode_attention": "K2",
                "paged_decode_attention": "K3", "rwkv6_scan": "K4",
@@ -2485,6 +2512,10 @@ def serve_costed_chain_tp(cfg, params, card: str, outputs_5m: dict) -> dict:
 
 # the prompt lengths of phases 5j and 5k
 MOE_PROMPTS = (64, 128, 256, 384, 512)
+# 5j's 24 requests: phase 6 times K3 at its paged step's 16 rows over
+# the live slots of its cloud's 16-row decode batch, which fewer
+# requests do not fill
+MOE_ROUNDS = (2, 3, 4, 5, 5, 5)
 
 
 def _describe(tag: str, cfg, params) -> None:
@@ -2512,7 +2543,7 @@ def serve_moe(cfg, params, card: str) -> tuple:
     shapes: dict = {}
     launches = serve_two_tier(
         "qwen2-moe", cfg, params, shapes, card,
-        ("flash_attention", "decode_attention"), RECURRENT_ROUNDS,
+        ("flash_attention", "decode_attention"), MOE_ROUNDS,
         MOE_PROMPTS, 1024, 17)
     paged_shapes: dict = {}
     paged = paged_vs_dense(cfg, params, card, paged_shapes, "qwen2-moe")
@@ -3659,6 +3690,330 @@ def train_sharded_full_on_card(card: str) -> dict:
             "traffic": traffic}
 
 
+# ------------------------------------------------------- phases 4h and 5q
+
+# phase 4h: the serve step over a (2, 2) mesh at smoke width
+SERVE_SMOKE_ARCHS = {"stablelm-1.6b": ("flash_attention", "decode_attention"),
+                     "hymba-1.5b": ("flash_attention", "decode_attention",
+                                    "ssd_scan"),
+                     "rwkv6-7b": ("rwkv6_scan",),
+                     "qwen2-moe-a2.7b": ("flash_attention",
+                                         "decode_attention")}
+SERVE_SMOKE = dict(batch=4, prompt=64, max_len=128, steps=8)
+# phase 5q: full-width stablelm-1.6b, a prefill of 4 x 2048 tokens, then 8
+# decode steps of 16 rows over a 2048-position cache filled with 2040
+# tokens
+SERVE_FULL = dict(batch=4, prompt=2048, rows=16, fill=2040, steps=8)
+
+
+def _serve_mesh(kind: str):
+    """A (2, 2) ("data", "model") mesh over four forced devices of
+    ``kind``."""
+    from repro_torch.launch import mesh as mesh_mod
+    with mesh_mod.forced_devices(4):
+        return mesh_mod.make_mesh((2, 2), ("data", "model"),
+                                  mesh_mod.host_devices(kind))
+
+
+def _serve_stream(cfg, params, toks, dev: str, mesh=None, feed=None):
+    """Phase 4h's run of one step kind: a prefill of ``toks`` into a
+    ``max_len`` cache, then ``steps`` greedy decode steps (fed ``feed``'s
+    ids instead when given).  Returns every step's float32 logits on the
+    host."""
+    import torch
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import engine
+    B, S = toks.shape
+    kw = {"mesh": mesh} if mesh is not None else {}
+    pre = engine.make_serve_step(cfg, "prefill", dev, **kw)
+    dec = engine.make_serve_step(cfg, "decode", dev, **kw)
+    cache = model_zoo.init_cache(cfg, B, SERVE_SMOKE["max_len"], dev)
+    batch = {"tokens": toks.to(dev)}
+    if mesh is not None:
+        params, cache, batch = engine.serve_placement(cfg, mesh, params,
+                                                      cache, batch)
+    logits, cache = pre(params, batch, cache)
+    out = [logits.float().cpu()]
+    for i in range(SERVE_SMOKE["steps"]):
+        nxt = out[-1].argmax(-1) if feed is None else feed[i]
+        x = {"tokens": nxt.to(torch.int32).to(dev),
+             "t": torch.full((B,), S + i, dtype=torch.int32, device=dev)}
+        if mesh is not None:
+            x = engine.serve_placement(cfg, mesh, {}, {}, x)[2]
+        logits, cache = dec(params, cache, x["tokens"], x["t"])
+        out.append(logits.float().cpu())
+    return out
+
+
+def serve_sharded_smoke_on_card(card: str) -> dict:
+    """Phase 4h: the serve step (``make_serve_step(..., mesh=)``) over a
+    (2, 2) mesh of ``forced_devices(4)`` on the card, for the smoke
+    stablelm, hymba, rwkv6 and qwen2-moe configs: a prefill of 4 prompts
+    of 64 tokens into a 128-position cache, then 8 greedy decode steps.
+    Held against the same step over a (2, 2) CPU mesh and against the
+    unsharded step on the card: the ids equal, the logits within the
+    bf16 tolerance (2e-2); the mesh run launches each of the family's
+    kernels (K1, K2, K4, K5) twice as often as the unsharded one (once a
+    data replica) and no plain version.  Returns the mesh runs'
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo
+    t0 = time.perf_counter()
+    meshes = {"cuda": _serve_mesh("cuda"), "cpu": _serve_mesh("cpu")}
+    total: dict = {}
+    for arch, kernels in SERVE_SMOKE_ARCHS.items():
+        cfg = configs.get_smoke_config(arch)
+        params = model_zoo.init(cfg, torch.Generator().manual_seed(0))
+        card_params = {k: v.cuda() for k, v in params.items()}
+        rng = np.random.default_rng(4)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (SERVE_SMOKE["batch"], SERVE_SMOKE["prompt"])
+        ).astype(np.int32))
+        runs, launched = {}, {}
+        for name, dev, mesh in (("card", "cuda", None),
+                                ("card mesh", "cuda", meshes["cuda"])):
+            ops.reset_launches()
+            runs[name] = _serve_stream(cfg, card_params, toks, dev, mesh)
+            torch.cuda.synchronize()
+            launched[name] = dict(ops.launches)
+        runs["cpu mesh"] = _serve_stream(cfg, params, toks, "cpu",
+                                         meshes["cpu"])
+        for other in ("card", "cpu mesh"):
+            for i, (a, b) in enumerate(zip(runs["card mesh"], runs[other])):
+                if not torch.equal(a.argmax(-1), b.argmax(-1)):
+                    raise RuntimeError(f"4h {arch} step {i}: ids of the "
+                                       f"card mesh differ from the {other}")
+                if not torch.allclose(a, b, **TOL["bfloat16"]):
+                    raise RuntimeError(
+                        f"4h {arch} step {i}: logits of the card mesh vs "
+                        f"the {other}: max |d| "
+                        f"{(a - b).abs().max().item():.3e}")
+        one, two = launched["card"], launched["card mesh"]
+        got = {k: n for k, n in two.items() if n}
+        want = {k: 2 * one[k] for k in kernels}
+        if got != want or not all(want.values()):
+            raise RuntimeError(f"4h {arch}: mesh launches {got}, expected "
+                               f"twice the unsharded {one}")
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        gap = max((a - b).abs().max().item() for a, b in
+                  zip(runs["card mesh"], runs["card"]))
+        log(f"[4h] {arch} smoke, serve step over (2, 2) on the card: "
+            f"prefill + {SERVE_SMOKE['steps']} decode steps, ids == the "
+            f"(2, 2) cpu mesh == the unsharded card step; logits vs "
+            f"unsharded max |d| {gap:.3e} (<= 2e-2); launches {got}")
+    log(f"[4h] phase wall {time.perf_counter() - t0:.1f} s ({card})")
+    return total
+
+
+def _rel_l2(a, b):
+    """Per-row relative L2 of ``a`` against ``b`` (float32)."""
+    return ((a.float() - b.float()).norm(dim=-1)
+            / b.float().norm(dim=-1).clamp_min(1e-30))
+
+
+def serve_sharded_full_on_card(cfg, params, card: str) -> dict:
+    """Phase 5q: full-width stablelm-1.6b (phase 5's weights) through the
+    serve step over a (2, 2) mesh of ``forced_devices(4)`` on the card:
+    (a) a prefill of 4 x 2048 tokens; (b) 8 decode steps of 16 rows over a
+    2048-position cache (6.4 GB) that the unsharded step filled with
+    2040-token prompts, fed the unsharded step's ids.  Two references:
+    the unsharded step over the whole batch, and a control, the unsharded
+    step run on each data replica's rows alone (the shapes each replica
+    computes at).  Fails unless the logits and the cache entries equal
+    the control's bit for bit (so the joins and write-backs lose
+    nothing), the ids equal the whole batch's but at near ties (the
+    batch's shape alone reorders bf16 sums: a flipped row's top-2 gap
+    under twice its largest |d|), the bytes each mesh step joined
+    and wrote back equal ``serve_step_counts``' collective bytes for the
+    same shape term by term, and K1 launched 24 layers x 2 replicas and
+    K2 24 x 2 x 8 times and no plain version.  Prints the logits'
+    relative L2 to the whole batch's (the rows-alone control's drift from
+    it, batch shape alone, is the same number when the gate holds), each
+    step's wall, a prefill's and a decode step's device time both ways,
+    the launches and the peak memory."""
+    import torch
+    from repro_torch import configs, placement
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_cost
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import engine
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = _serve_mesh("cuda")
+    shape2 = {"data": 2, "model": 2}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    B, S = SERVE_FULL["batch"], SERVE_FULL["prompt"]
+    R, F = SERVE_FULL["rows"], SERVE_FULL["fill"]
+    pre_u = engine.make_serve_step(cfg, "prefill", "cuda")
+    pre_m = engine.make_serve_step(cfg, "prefill", mesh=mesh)
+    dec_u = engine.make_serve_step(cfg, "decode", "cuda")
+    dec_m = engine.make_serve_step(cfg, "decode", mesh=mesh)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - w0
+
+    def halves(n):
+        return [slice(0, n // 2), slice(n // 2, n)]
+
+    def same(a, b) -> bool:
+        return a.dtype == b.dtype and bool(torch.equal(a, b))
+
+    def near_ties(what: str, got, whole) -> int:
+        """The rows whose id differs from the whole batch's; raises
+        unless each is a near tie there (top-2 gap under twice the row's
+        largest |d| between the two)."""
+        flip = got.argmax(-1) != whole.argmax(-1)
+        top = whole.topk(2, dim=-1).values
+        gap = top[:, 0] - top[:, 1]
+        drift = (got - whole).abs().max(dim=-1).values
+        if bool((flip & (gap >= 2 * drift)).any()):
+            raise RuntimeError(f"5q {what}: ids differ from the unsharded "
+                               f"step beyond a near tie (gaps "
+                               f"{gap[flip].tolist()}, drifts "
+                               f"{drift[flip].tolist()})")
+        return int(flip.sum())
+
+    # (a) the prefill
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    cache_u = model_zoo.init_cache(cfg, B, S, "cuda")
+    (lg_u, cache_u), wall_pre_u = synced(
+        lambda: pre_u(params, {"tokens": toks}, cache_u))
+    ctl = [pre_u(params, {"tokens": toks[h]},
+                 model_zoo.init_cache(cfg, B // 2, S, "cuda"))
+           for h in halves(B)]
+    p, c, x = engine.serve_placement(
+        cfg, mesh, params, model_zoo.init_cache(cfg, B, S, "cuda"),
+        {"tokens": toks})
+    ops.reset_launches()
+    (lg_m, c), wall_pre_m = synced(lambda: pre_m(p, x, c))
+    launched = dict(ops.launches)
+    pre_counts = serve_cost.serve_step_counts(
+        cfg, shape2, configs.ShapeSpec("5q prefill", "prefill", S, B))
+    if pre_m.traffic != pre_counts["collective"]:
+        raise RuntimeError(f"5q prefill: the step moved {pre_m.traffic}, "
+                           f"the closed form counts "
+                           f"{pre_counts['collective']}")
+    flips = near_ties("prefill", lg_m, lg_u)
+    joined = {k: placement.join(v) for k, v in c.items()}
+    for h, (lg_h, cache_h) in zip(halves(B), ctl):
+        if not (same(lg_m[h], lg_h) and all(
+                same(joined[k][:, h], v) for k, v in cache_h.items())):
+            raise RuntimeError(f"5q prefill rows {h}: the mesh step's "
+                               f"logits or cache differ from the unsharded "
+                               f"step on those rows alone")
+    rel_pre = _rel_l2(lg_m, lg_u).max().item()
+    pre_bitwise = same(lg_m, lg_u)
+    pre_traffic = dict(pre_m.traffic)
+    dev_pre_m = _device_ms(lambda: pre_m(p, x, c), 1)[0]
+    dev_pre_u = _device_ms(
+        lambda: pre_u(params, {"tokens": toks}, cache_u), 1)[0]
+    del c, x, cache_u, lg_u, lg_m, ctl, joined
+
+    # (b) 8 decode steps of 16 rows over a 2048-position cache
+    fill = torch.randint(0, cfg.vocab_size, (R, F), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    cache16 = model_zoo.init_cache(cfg, R, S, "cuda")
+    lg, cache16 = pre_u(params, {"tokens": fill}, cache16)
+    _, c16, _ = engine.serve_placement(cfg, mesh, {}, cache16, {})
+    cache_h = [{k: v[:, h].clone() for k, v in cache16.items()}
+               for h in halves(R)]
+    ref, ctl, walls_u, ins = [], [], [], []
+    nxt = lg.argmax(-1).to(torch.int32)
+    for i in range(SERVE_FULL["steps"]):
+        t = torch.full((R,), F + i, dtype=torch.int32, device="cuda")
+        ins.append((nxt, t))
+        (lg, cache16), w = synced(lambda: dec_u(params, cache16, nxt, t))
+        ctl.append(torch.cat([dec_u(params, ch, nxt[h], t[h])[0]
+                              for h, ch in zip(halves(R), cache_h)]))
+        ref.append(lg)
+        walls_u.append(w)
+        nxt = lg.argmax(-1).to(torch.int32)
+    rels, rels_ctl, walls_m, steps_traffic = [], [], [], []
+    ops.reset_launches()
+    for i, ((tok, t), want_lg) in enumerate(zip(ins, ref)):
+        xi = engine.serve_placement(cfg, mesh, {}, {},
+                                    {"tokens": tok, "t": t})[2]
+        before = dict(dec_m.traffic)
+        (lg, c16), w = synced(lambda: dec_m(p, c16, xi["tokens"],
+                                            xi["t"]))
+        walls_m.append(w)
+        moved = {k: dec_m.traffic[k] - before[k] for k in before}
+        want = serve_cost.serve_step_counts(
+            cfg, shape2, configs.ShapeSpec("5q decode", "decode", S, R),
+            position=F + i)
+        if moved != want["collective"]:
+            raise RuntimeError(f"5q decode step {i}: the step moved {moved}, "
+                               f"the closed form counts "
+                               f"{want['collective']}")
+        steps_traffic.append(moved)
+        if not same(lg, ctl[i]):
+            raise RuntimeError(
+                f"5q decode step {i}: the mesh step's logits differ from "
+                f"the unsharded step on each replica's rows alone "
+                f"(relative L2 {_rel_l2(lg, ctl[i]).max().item():.3e})")
+        flips += near_ties(f"decode step {i}", lg, want_lg)
+        rels.append(_rel_l2(lg, want_lg).max().item())
+        rels_ctl.append(_rel_l2(ctl[i], want_lg).max().item())
+    joined = {k: placement.join(v) for k, v in c16.items()}
+    if not all(same(joined[k][:, h], ch[k]) for h, ch in
+               zip(halves(R), cache_h) for k in ch):
+        raise RuntimeError("5q decode: the mesh's cache differs from the "
+                           "rows-alone control's after 8 steps")
+    del joined
+    launched = {k: launched.get(k, 0) + n for k, n in ops.launches.items()}
+    got = {k: n for k, n in launched.items() if n}
+    want_launch = {"flash_attention": cfg.num_layers * 2,
+                   "decode_attention": cfg.num_layers * 2
+                   * SERVE_FULL["steps"]}
+    if got != want_launch:
+        raise RuntimeError(f"5q: launches {got}, expected {want_launch}")
+    tok, t = ins[-1]
+    xi = engine.serve_placement(cfg, mesh, {}, {}, {"tokens": tok, "t": t})[2]
+    dev_dec_m = _device_ms(lambda: dec_m(p, c16, xi["tokens"], xi["t"]),
+                           1)[0]
+    dev_dec_u = _device_ms(lambda: dec_u(params, cache16, tok, t), 1)[0]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = serve_cost.serve_step_counts(
+        cfg, shape2, configs.ShapeSpec("5q decode", "decode", S, R),
+        position=F + SERVE_FULL["steps"] - 1)
+    log(f"[5q] stablelm-1.6b full width, serve step over (2, 2) on the card "
+        f"(forced_devices(4)): prefill {B} x {S} and "
+        f"{SERVE_FULL['steps']} decode steps of {R} rows over {S} positions "
+        f"({F} filled): logits, ids and cache entries == the unsharded "
+        f"step on each replica's rows alone, bitwise; vs the unsharded "
+        f"step on the whole batch: {flips} of {B + R * SERVE_FULL['steps']}"
+        f" ids differ, each at a near tie; prefill relative L2 {rel_pre:.3e} "
+        f"(bitwise {pre_bitwise}), decode {[float(f'{r:.4e}') for r in rels]}"
+        f" (the rows-alone control's {[float(f'{r:.4e}') for r in rels_ctl]}"
+        f"; all within 2e-2: {max(rels + [rel_pre]) <= 2e-2})")
+    log(f"[5q] bytes joined and written back: prefill {pre_traffic} == "
+        f"serve_step_counts {pre_counts['collective']}; decode steps "
+        f"{steps_traffic[0]} .. {steps_traffic[-1]} == serve_step_counts "
+        f"{counts['collective']} (each step equal)")
+    log(f"[5q] walls s: prefill mesh {wall_pre_m:.4f} unsharded "
+        f"{wall_pre_u:.4f}; decode mesh {[round(w, 5) for w in walls_m]} "
+        f"unsharded {[round(w, 5) for w in walls_u]}; device ms: prefill "
+        f"mesh {dev_pre_m:.3f} unsharded {dev_pre_u:.3f}, decode step mesh "
+        f"{dev_dec_m:.3f} unsharded {dev_dec_u:.3f}; launches {got}; peak "
+        f"memory {peak:.2f} GB (max_memory_allocated); phase wall "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    del p, c16, cache16, cache_h, ref, ctl
+    return {"launches": got, "walls_decode": walls_m,
+            "device_ms": {"prefill": dev_pre_m, "prefill_unsharded":
+                          dev_pre_u, "decode": dev_dec_m,
+                          "decode_unsharded": dev_dec_u},
+            "peak_gb": peak}
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -4490,6 +4845,7 @@ def main() -> int:
     smoke_tp_on_card()                                 # phase 4e
     train_smoke_launches = train_smoke_on_card(card)   # phase 4f
     sharded_smoke_launches = train_sharded_smoke_on_card(card)  # phase 4g
+    serve_smoke_launches = serve_sharded_smoke_on_card(card)    # phase 4h
     cfg, params = full_model("stablelm-1.6b")
     shapes: dict = {}
     launches = serve_full(cfg, params, shapes)
@@ -4510,6 +4866,7 @@ def main() -> int:
     free_card("5n (b)")
     faas_bodies(card)
     sim_sweep()
+    serve_5q = serve_sharded_full_on_card(cfg, params, card)   # phase 5q
     del params
     free_card("stablelm-1.6b")
     hcfg, hparams = full_model("hymba-1.5b")
@@ -4565,6 +4922,8 @@ def main() -> int:
     rows.append(timing_train(train_5o["launches"]))
     for row in rows:
         row["launches_4g"] = sharded_smoke_launches.get(row["name"], 0)
+        row["launches_4h"] = serve_smoke_launches.get(row["name"], 0)
+        row["launches_5q"] = serve_5q["launches"].get(row["name"], 0)
         row["launches_5p"] = (train_5p["launches"]
                               if row["name"] == "flash_attention" else 0)
     log(f"[time-hymba] {json.dumps({'kernels_at_hymba_shapes': hy_rows})}")

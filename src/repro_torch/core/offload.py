@@ -66,6 +66,9 @@ class OffloadConfig:
     net_aware: bool = False
     link_bytes_per_s: float = 100e6   # the paper's observed 100 MB/s ceiling
     req_bytes: float = 1e6            # average request+response payload
+    # the demand (requests/s) a net-aware update assumes when its caller
+    # passes none
+    demand_rps: float = 100.0
 
     def decay_weights(self) -> torch.Tensor:
         """w_k = c_decay^k / sum_j c_decay^j for k = 0..c_t (newest first)."""
@@ -128,17 +131,37 @@ def _nanpercentile(x: torch.Tensor, q: float) -> torch.Tensor:
     return _fma(hi_v, high_w, lo_v * low_w)
 
 
+def _percentile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """Row-wise linear-interpolation percentile of whole rows, step for
+    step as ``jnp.percentile`` (a row holding a NaN gives NaN).  Its
+    weights are constants, and XLA on the CPU contracts ``lo*lw + hi*hw``
+    into fma(lo, lw, hi*hw)."""
+    n = x.shape[-1]
+    x = torch.where(torch.isnan(x).any(dim=-1, keepdim=True),
+                    torch.full_like(x, float("nan")), x)
+    xs, _ = torch.sort(x, dim=-1)
+    pos = torch.tensor(q, dtype=torch.float32) / 100.0 * torch.tensor(
+        n - 1, dtype=torch.float32)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    high_w = pos - low
+    low_w = 1.0 - high_w
+    lo_v, hi_v = xs[:, int(low)], xs[:, int(high)]
+    return _fma(lo_v, low_w.expand_as(lo_v), hi_v * high_w)
+
+
 # lint: ignore[parity-drift] -- the port imports nothing of repro;
 # tests/test_torch_control.py::test_eq1_eq3_match_reference holds this
 # copy against repro.core.offload.latency_ratio
 def latency_ratio(latencies: torch.Tensor,
                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Eq (1): (F,) p95/p50 tail ratio of the (F, W) latency windows,
-    over the ``valid`` observations only, floored at 1.0."""
+    over the ``valid`` observations only (``jnp.nanpercentile``), or over
+    whole windows without a mask (``jnp.percentile``), floored at 1.0."""
     lat = torch.as_tensor(latencies, dtype=torch.float32)
-    if valid is not None:
-        valid = torch.as_tensor(valid, dtype=torch.bool)
-        lat = torch.where(valid, lat, torch.full_like(lat, float("nan")))
+    if valid is None:
+        return tail_ratio(_percentile(lat, 95.0), _percentile(lat, 50.0))
+    valid = torch.as_tensor(valid, dtype=torch.bool)
+    lat = torch.where(valid, lat, torch.full_like(lat, float("nan")))
     return tail_ratio(_nanpercentile(lat, 95.0), _nanpercentile(lat, 50.0))
 
 
@@ -196,7 +219,8 @@ def link_x100(link_bytes_per_s: float) -> float:
 
 def finish_rows(state: OffloadState, r_l: torch.Tensor, active,
                 link_x100, req_bytes, net_mask, demand_rps,
-                cfg: OffloadConfig) -> Tuple[OffloadState, torch.Tensor]:
+                cfg: OffloadConfig, *, fma_on_prev: bool = False
+                ) -> Tuple[OffloadState, torch.Tensor]:
     """Eqs (2)-(4) over rows, then the net cap.
 
     ``r_l`` is each row's fresh Eq-(1) ratio; ``active`` (P,) freezes the
@@ -206,14 +230,19 @@ def finish_rows(state: OffloadState, r_l: torch.Tensor, active,
     ``req_bytes``, ``net_mask`` (the rows whose policy is net-aware) and
     ``demand_rps``, each a value a row or one for all.  Bitwise the
     reference's ``_finish_rows`` (subnormal results flushed, as XLA
-    does)."""
+    does); ``fma_on_prev`` takes Eq (4)'s other contraction, which XLA
+    picks in the body of the reference's net-aware ``scan_controller``."""
     new = push_ratio(state, r_l)
     r_prime = decayed_ratio(new, cfg)                   # Eq (2)
     r_t = target_percentage(r_prime, cfg)               # Eq (3)
-    # Eq (4), contracted by XLA into fma(r_t, 1 - c_in, R * c_in)
+    # Eq (4), contracted by XLA into fma(r_t, 1 - c_in, R * c_in), or,
+    # with ``fma_on_prev``, into fma(R, c_in, r_t * (1 - c_in))
     c_in = torch.tensor(cfg.c_in, dtype=torch.float32)
     one_m = torch.tensor(1.0 - cfg.c_in, dtype=torch.float32)
-    R = _fma(r_t, one_m.expand_as(r_t), _ftz(state.R * c_in))
+    if fma_on_prev:
+        R = _fma(state.R, c_in.expand_as(r_t), _ftz(r_t * one_m))
+    else:
+        R = _fma(r_t, one_m.expand_as(r_t), _ftz(state.R * c_in))
     net = torch.as_tensor(net_mask, dtype=torch.bool)
     if net.any():
         rps, req, link = (torch.as_tensor(v, dtype=torch.float32)
@@ -241,14 +270,54 @@ def offload_update(state: OffloadState, latencies, valid,
     percentage of traffic to send down-chain, bitwise equal to the
     reference's rows kernel (subnormal results flushed, as XLA does)."""
     r_l = latency_ratio(latencies, valid)               # Eq (1)
+    return _finish(state, r_l, cfg, demand_rps)
+
+
+def _finish(state: OffloadState, r_l: torch.Tensor, cfg: OffloadConfig,
+            demand_rps, fma_on_prev: bool = False
+            ) -> Tuple[OffloadState, torch.Tensor]:
+    """Eqs (2)-(4) and the cap over every row, the cap at ``demand_rps``
+    or, for None, ``cfg.demand_rps``."""
+    if demand_rps is None:
+        demand_rps = cfg.demand_rps
     return finish_rows(state, r_l, None, link_x100(cfg.link_bytes_per_s),
-                       cfg.req_bytes, cfg.net_aware, demand_rps, cfg)
+                       cfg.req_bytes, cfg.net_aware, demand_rps, cfg,
+                       fma_on_prev=fma_on_prev)
+
+
+def scan_controller(cfg: OffloadConfig, windows,
+                    valid=None) -> torch.Tensor:
+    """The controller over a (T, F, W) latency trace (``valid`` an
+    optional (T, F, W) mask), from the initial state: the (T, F)
+    trajectory of R_t, one :func:`offload_update` a step.  Bitwise the
+    reference's ``lax.scan`` (``repro/core/offload.py:375``), whose loop
+    body XLA contracts Eq (4) the other way round when the net cap
+    follows it."""
+    windows = torch.as_tensor(windows, dtype=torch.float32)
+    T, F, _ = windows.shape
+    state = OffloadState.init(F, cfg)
+    out = torch.empty((T, F), dtype=torch.float32)
+    for i in range(T):
+        r_l = latency_ratio(windows[i], None if valid is None else valid[i])
+        state, out[i] = _finish(state, r_l, cfg, None,
+                                fma_on_prev=cfg.net_aware)
+    return out
 
 
 def latency_ratio_from_sketch(hist: quantile.Histogram) -> torch.Tensor:
     """Eq (1) from the histogram sketch: (F,) p95/p50, floored at 1."""
     p95, p50 = quantile.quantile_fast(hist, (0.95, 0.50))
     return tail_ratio(p95, p50)
+
+
+def offload_update_from_sketch(state: OffloadState,
+                               hist: quantile.Histogram, cfg: OffloadConfig,
+                               demand_rps=None
+                               ) -> Tuple[OffloadState, torch.Tensor]:
+    """One controller step with Eq (1) read from the histogram sketch
+    (p95 / p50 of each row's decayed histogram), then Eqs (2)-(4) and the
+    cap as :func:`offload_update`.  Returns (new_state, R)."""
+    return _finish(state, latency_ratio_from_sketch(hist), cfg, demand_rps)
 
 
 def offload_update_rows_stream(

@@ -2,11 +2,14 @@
 
 The port's counterpart of ``repro/core/router.py``:
 
+  * ``route_bernoulli`` — the paper-faithful per-request coin flip;
   * ``route_batch`` — expectation-matched 2-tier split: per function,
     ``floor(B_f * p_f)`` requests plus a Bernoulli remainder cross;
+    ``route_batch_dense`` is its O(B^2) form (the same split);
   * ``route_tiers`` — its N-tier generalization over a per-function tier
     distribution;
-  * ``hedged_mask`` — which waiting requests get a straggler backup.
+  * ``hedged_mask`` — which waiting requests get a straggler backup;
+  * ``split_counts`` — per-function edge / cloud counts of a mask.
 
 The functions take their uniform draws as arguments (``extra_u`` for the
 per-function Bernoulli remainders, ``noise`` for the within-function
@@ -37,6 +40,16 @@ def _rank_within_function(fn_ids: torch.Tensor,
     return rank
 
 
+def route_bernoulli(pct: torch.Tensor, fn_ids: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+    """Per-request i.i.d. routing (paper-faithful) -> (B,) bool, True =
+    cloud.  pct: (F,) percentage to offload; u: (B,) uniforms in [0, 1)."""
+    fn_ids = torch.as_tensor(fn_ids, dtype=torch.int64)
+    p = torch.clamp(torch.as_tensor(pct, dtype=torch.float32)[fn_ids]
+                    / 100.0, 0.0, 1.0)
+    return torch.as_tensor(u, dtype=torch.float32) < p
+
+
 def route_batch(pct: torch.Tensor, fn_ids: torch.Tensor, num_functions: int,
                 extra_u: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     """Expectation-matched 2-tier split -> (B,) bool, True = cloud.
@@ -55,6 +68,39 @@ def route_batch(pct: torch.Tensor, fn_ids: torch.Tensor, num_functions: int,
     n_cloud = base + extra
     rank = _rank_within_function(fn_ids, torch.as_tensor(noise))
     return rank < n_cloud[fn_ids]
+
+
+def route_batch_dense(pct: torch.Tensor, fn_ids: torch.Tensor,
+                      num_functions: int, extra_u: torch.Tensor,
+                      noise: torch.Tensor) -> torch.Tensor:
+    """:func:`route_batch` through a (B, B) same-function rank matrix, as
+    the reference's O(B^2) form computes it (the controller benchmark
+    times it against the sort).  The same draws give the same mask
+    wherever ``noise`` has no ties."""
+    fn_ids = torch.as_tensor(fn_ids, dtype=torch.int64)
+    p = torch.clamp(torch.as_tensor(pct, dtype=torch.float32) / 100.0,
+                    0.0, 1.0)
+    onehot = torch.nn.functional.one_hot(fn_ids, num_functions).to(
+        torch.float32)                                    # (B, F)
+    want = onehot.sum(dim=0) * p
+    base = torch.floor(want)
+    extra = (torch.as_tensor(extra_u, dtype=torch.float32)
+             < want - base).to(torch.float32)
+    n_cloud = base + extra
+    noise = torch.as_tensor(noise, dtype=torch.float32)
+    same = onehot @ onehot.t()                            # 1 if same fn
+    rank = (same * (noise[None, :] < noise[:, None])).sum(dim=1)
+    return rank < n_cloud[fn_ids]
+
+
+def split_counts(mask: torch.Tensor, fn_ids: torch.Tensor,
+                 num_functions: int):
+    """(F,) int32 edge and cloud request counts of a (B,) routing mask."""
+    fn_ids = torch.as_tensor(fn_ids, dtype=torch.int64)
+    total = torch.bincount(fn_ids, minlength=num_functions)
+    cloud = torch.zeros(num_functions, dtype=torch.int64).index_add_(
+        0, fn_ids, torch.as_tensor(mask, dtype=torch.int64))
+    return (total - cloud).to(torch.int32), cloud.to(torch.int32)
 
 
 def route_tiers(dist: torch.Tensor, fn_ids: torch.Tensor,

@@ -42,7 +42,7 @@ bytes above.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
@@ -98,12 +98,16 @@ def _is_product(path: str, axes) -> bool:
 
 
 def _forward_products(cfg: ModelConfig, batch: int, seq: int,
-                     labels: int) -> Dict[str, float]:
+                     labels: int, keys: Optional[int] = None
+                     ) -> Dict[str, float]:
     """The forward's matmul FLOPs over the global batch: ``layers`` (the
     weight products and attention of every layer), ``last`` (each
-    layer's last product, part of ``layers``), ``head`` (the CE head over
-    the ``labels`` positions) and ``onehot`` (the reference's contraction
-    of the logits with the label's one-hot)."""
+    layer's last product, part of ``layers``), ``head`` (the output head
+    over the ``labels`` positions) and ``onehot`` (the reference's
+    contraction of the logits with the label's one-hot).  Attention runs
+    ``seq`` queries over ``keys`` keys (default ``seq``; a decode step's
+    are its cache's positions)."""
+    keys = seq if keys is None else keys
     table = model_zoo.param_table(cfg)
     tokens = batch * seq
     layers = last = 0.0
@@ -124,7 +128,7 @@ def _forward_products(cfg: ModelConfig, batch: int, seq: int,
     if "layers/attn/wq" in table:
         for i in range(cfg.num_layers):
             w = transformer._window_for_layer(cfg, i)
-            t = seq if w is None else min(w, seq)
+            t = keys if w is None else min(w, keys)
             layers += 4.0 * batch * seq * t * cfg.num_heads * cfg.head_dim
     head = 2.0 * batch * labels * cfg.d_model * cfg.vocab_size
     onehot = 2.0 * batch * labels * cfg.vocab_size

@@ -67,6 +67,11 @@ from repro_torch.models.common import (ModelConfig, ParamSpec, Params,
 
 Cache = Dict[str, torch.Tensor]
 
+#: the last name parts of the cache leaves with a position axis (axis 2):
+#: a decode step writes one position of each row there, and rewrites the
+#: other leaves (a family's recurrent state) whole
+POSITION_LEAVES = ("k", "v", "pos")
+
 
 # --------------------------------------------------------------------------
 # Parameter tables (identical keys and shapes to the reference)

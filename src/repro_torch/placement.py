@@ -16,14 +16,16 @@ its grid of pieces and :func:`join` concatenates the blocks back, bit for
 bit.  The tensor-parallel endpoint keeps its own one-axis split and join
 (``serving/sharded.py``); these serve the train state, which shards two
 dimensions ("embed" over "data", heads / ffn / vocab over "model") and
-its batch over ("pod", "data").
+its batch over ("pod", "data").  :func:`take` and :func:`put` read and
+write a region of a placed tensor (a serve step's rows, a decode step's
+written positions), counting the bytes a mesh would move.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -168,6 +170,78 @@ def join(p: Placed, device=None) -> torch.Tensor:
     return cat((), 0)
 
 
+Region = Dict[int, slice]
+
+
+def _window(shape, region: Optional[Region]) -> List[slice]:
+    """``region`` ({dim: slice}, other dimensions whole) as one slice a
+    dimension, with concrete bounds."""
+    region = region or {}
+    return [slice(*region[d].indices(n)[:2]) if d in region else
+            slice(0, n) for d, n in enumerate(shape)]
+
+
+def _overlap(block: Tuple[slice, ...], win: List[slice]):
+    """(the block's local slices, the window's local slices) of their
+    intersection, or None when they do not meet."""
+    inter = [slice(max(a.start, w.start), min(a.stop, w.stop))
+             for a, w in zip(block, win)]
+    if any(i.start >= i.stop for i in inter):
+        return None
+    return (tuple(slice(i.start - a.start, i.stop - a.start)
+                  for i, a in zip(inter, block)),
+            tuple(slice(i.start - w.start, i.stop - w.start)
+                  for i, w in zip(inter, win)))
+
+
+def take(p: Placed, coord: Tuple[int, ...], device,
+         region: Optional[Region] = None) -> Tuple[torch.Tensor, int]:
+    """The part of ``p`` inside ``region`` ({dim: slice}; default the
+    whole tensor), a new tensor on ``device``, bit for bit, and the bytes
+    of it that mesh position ``coord`` does not hold (what a mesh would
+    move to that position).  The position's own block is read from its
+    own piece."""
+    win = _window(p.shape, region)
+    out = torch.empty([w.stop - w.start for w in win], dtype=p.dtype,
+                      device=device)
+    own = p.block_of(coord)
+    moved = 0
+    for b, piece in p.blocks():
+        hit = _overlap(p.slices(b), win)
+        if hit is None:
+            continue
+        src = (p.pieces[coord] if b == own else piece)[hit[0]]
+        out[hit[1]].copy_(src)
+        if b != own:
+            moved += src.numel() * src.element_size()
+    return out, moved
+
+
+def put(p: Placed, src: torch.Tensor, coord: Tuple[int, ...],
+        region: Optional[Region] = None) -> int:
+    """Write ``src``, the part of the tensor inside ``region``, into every
+    piece of ``p`` that holds some of it (replicas too), bit for bit;
+    returns the bytes written at mesh positions other than ``coord`` (what
+    a mesh would move from that position)."""
+    win = _window(p.shape, region)
+    if tuple(src.shape) != tuple(w.stop - w.start for w in win):
+        raise ValueError(f"a {tuple(src.shape)} source for a region of "
+                         f"{[w.stop - w.start for w in win]}")
+    moved, written = 0, set()
+    for c in np.ndindex(p.pieces.shape):
+        hit = _overlap(p.slices(p.block_of(c)), win)
+        if hit is None:
+            continue
+        piece = p.pieces[c]
+        part = src[hit[1]]
+        if id(piece) not in written:
+            written.add(id(piece))
+            piece[hit[0]].copy_(part)
+        if c != tuple(coord):
+            moved += part.numel() * part.element_size()
+    return moved
+
+
 def aligned(*leaves: Placed) -> Iterator[Tuple[Block, List[torch.Tensor]]]:
     """Leaves placed alike (one spec, one mesh), piece by piece: each
     distinct piece of the first once, with its block and the pieces of
@@ -181,13 +255,18 @@ def aligned(*leaves: Placed) -> Iterator[Tuple[Block, List[torch.Tensor]]]:
             yield first.block_of(coord), [l.pieces[coord] for l in leaves]
 
 
-def replica_devices(mesh: Any, axes: Tuple[str, ...]) -> List[torch.device]:
-    """The device of each index over ``axes`` (in order, the first the
-    most significant), every other axis at 0: the data replicas'."""
+def replica_coords(mesh: Any, axes: Tuple[str, ...]
+                   ) -> List[Tuple[int, ...]]:
+    """The mesh position of each index over ``axes`` (in order, the first
+    the most significant), every other axis at 0: the data replicas'."""
     sizes = [mesh.shape[a] for a in axes]
     out = []
     for idx in np.ndindex(*sizes):
         at = dict(zip(axes, idx))
-        out.append(mesh.devices[tuple(at.get(a, 0)
-                                      for a in mesh.axis_names)])
+        out.append(tuple(at.get(a, 0) for a in mesh.axis_names))
     return out
+
+
+def replica_devices(mesh: Any, axes: Tuple[str, ...]) -> List[torch.device]:
+    """The device of each of :func:`replica_coords`."""
+    return [mesh.devices[c] for c in replica_coords(mesh, axes)]

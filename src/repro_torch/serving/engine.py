@@ -53,22 +53,29 @@ row (kv heads concatenated) and lands split by heads, so its bytes do
 not depend on the mesh, and it moves only between endpoints of equal
 ``tp``.  A sharded endpoint's ``device`` is its first shard's: tokens go
 up and the gathered logits come back there.
+
+:func:`make_serve_step` gives the pure prefill and decode functions the
+dry run counts, on one device or, single-controller, over a
+``(data, model)`` mesh by the ``"serve"`` tables.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.cache import (PagePool, PrefixRegistry, pages_for_tokens,
                                pages_needed, token_extent)
+from repro_torch import placement
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.launch import sharding as launch_sharding
 from repro_torch.models import model_zoo
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.transformer import POSITION_LEAVES
 from repro_torch.serving import sharded
 from repro_torch.sharding import Spec
 
@@ -762,3 +769,160 @@ class Endpoint:
             self.slot_pos[s] += 1
             out[s] = int(nxt[s])
         return out
+
+
+# ---------------------------------------------------------------------------
+# The serve step the dry run counts
+# ---------------------------------------------------------------------------
+
+def make_serve_step(cfg: ModelConfig, mode: str, device: DeviceLike = "cuda",
+                    *, mesh=None, serve_mode: str = "serve") -> Callable:
+    """The pure prefill or decode function of one configuration (no
+    endpoint state): the counterpart of the reference's
+    ``make_serve_step`` (``repro/serving/engine.py:1138``), which its dry
+    run lowers on a mesh.
+
+    mode="prefill": ``(params, batch, cache) -> (last_logits, cache)``
+    mode="decode":  ``(params, cache, tokens, t) -> (logits, cache)``
+
+    The cache is written in place and returned.  Without ``mesh`` the
+    step runs ``model_zoo.prefill`` / ``decode`` on ``device`` (default
+    the card; raises without one) with its params and cache there.
+
+    With ``mesh`` (a ``launch/mesh.Mesh``) it takes the params, cache and
+    inputs placed by :func:`serve_placement` (params by
+    ``param_shardings(cfg, mesh, serve_mode)``, the cache by
+    ``cache_shardings(..., "serve")``, the inputs by ``batch_shardings``)
+    and is single-controller, as the sharded train step and the
+    tensor-parallel endpoint are.  For each data replica (an index of the
+    mesh's ``("pod", "data")`` axes, at ``"model"`` 0) it joins every
+    weight whole onto the replica's device, joins its rows' cache blocks
+    (the ``"serve"`` cache splits the positions over ``"model"``), runs
+    the family's prefill or decode there (through the kernels on a card)
+    and writes the rows' new cache entries back into their blocks: all of
+    them after a prefill, a decode step only the position it wrote (and
+    the recurrent state, which it rewrites whole).  So the ``"model"``
+    axis shards storage, not compute.  A batch the rule leaves
+    replicated (long_500k's one row) runs on the first replica alone.
+    The logits come back on the first replica's device.
+
+    ``serve_step.traffic`` counts the bytes a mesh would move: the
+    weight and cache blocks a replica's position does not hold
+    (``weights``, ``cache``), the entries written back to other
+    positions (``writeback``, replicas included) and the logits gathered
+    to the first replica (``logits``).
+    ``launch/serve_cost.serve_step_counts`` gives the same counts in
+    closed form."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"unknown serve mode {mode!r}; the modes are "
+                         f"'prefill' and 'decode'")
+    if serve_mode not in ("serve", "serve_replicated"):
+        raise ValueError(f"unknown serve_mode {serve_mode!r}")
+    if mesh is not None:
+        return _mesh_serve_step(cfg, mode, mesh, serve_mode)
+    dev = resolve(device)
+    if mode == "prefill":
+        def serve_step(params, batch, cache):
+            return model_zoo.prefill(
+                cfg, params, {k: v.to(dev) for k, v in batch.items()}, cache)
+    else:
+        def serve_step(params, cache, tokens, t):
+            return model_zoo.decode(cfg, params, cache, tokens.to(dev),
+                                    t.to(dev))
+    return serve_step
+
+
+def serve_placement(cfg: ModelConfig, mesh, params, cache, inputs,
+                    serve_mode: str = "serve"):
+    """(params, cache, inputs) placed on ``mesh`` as a serve step over it
+    takes them: the params by ``param_shardings(cfg, mesh, serve_mode)``,
+    the cache by ``cache_shardings(cfg, cache, mesh, "serve")`` and the
+    inputs (a prefill's batch, or a decode step's ``{"tokens", "t"}``)
+    by ``batch_shardings``."""
+    psh = launch_sharding.param_shardings(cfg, mesh, serve_mode)
+    csh = launch_sharding.cache_shardings(cfg, cache, mesh, "serve")
+    bsh = launch_sharding.batch_shardings(inputs, mesh)
+
+    def tree(d, specs):
+        return {k: placement.place(v, specs[k], mesh) for k, v in d.items()}
+    return tree(params, psh), tree(cache, csh), tree(inputs, bsh)
+
+
+def _mesh_serve_step(cfg: ModelConfig, mode: str, mesh,
+                     serve_mode: str) -> Callable:
+    """The serve step over ``mesh`` (see :func:`make_serve_step`)."""
+    homes = placement.replica_coords(
+        mesh, tuple(a for a in ("pod", "data") if a in mesh.axis_names))
+    want = launch_sharding.param_shardings(cfg, mesh, serve_mode)
+    traffic = {"weights": 0, "cache": 0, "writeback": 0, "logits": 0}
+
+    def check(tree, what: str) -> None:
+        for k, p in tree.items():
+            if not isinstance(p, placement.Placed) or p.mesh is not mesh:
+                raise ValueError(f"{what} {k}: the serve step over a mesh "
+                                 f"takes tensors placed on that mesh")
+            if what == "param" and p.spec != want[k]:
+                raise ValueError(f"param {k} is placed by {p.spec}; the "
+                                 f"{serve_mode!r} layout is {want[k]}")
+
+    def run(params, inputs, cache):
+        check(params, "param")
+        check(inputs, "input")
+        check(cache, "cache leaf")
+        lead = inputs["tokens"]
+        t = (placement.join(inputs["t"], "cpu").tolist()
+             if mode == "decode" else None)
+        done, outs = set(), []
+        for coord in homes:
+            blk = lead.block_of(coord)
+            if blk[0] in done:          # the rows of a replica already run
+                continue
+            done.add(blk[0])
+            rows = lead.slices(blk)[0]
+            dev = mesh.devices[coord]
+            w = {}
+            for k, p in params.items():
+                w[k], n = placement.take(p, coord, dev)
+                traffic["weights"] += n
+            x = {k: placement.take(p, coord, dev, {0: rows})[0]
+                 for k, p in inputs.items()}
+            c = {}
+            for k, p in cache.items():
+                c[k], n = placement.take(p, coord, dev, {1: rows})
+                traffic["cache"] += n
+            if mode == "prefill":
+                logits, c = model_zoo.prefill(cfg, w, x, c)
+            else:
+                logits, c = model_zoo.decode(cfg, w, c, x["tokens"],
+                                             x["t"])
+            del w
+            for k, p in cache.items():
+                if mode == "prefill" or \
+                        k.rpartition("/")[2] not in POSITION_LEAVES:
+                    traffic["writeback"] += placement.put(p, c[k], coord,
+                                                          {1: rows})
+                    continue
+                W = p.shape[2]
+                for i in range(rows.start, rows.stop):
+                    s = t[i] % W
+                    j = i - rows.start
+                    traffic["writeback"] += placement.put(
+                        p, c[k][:, j:j + 1, s:s + 1], coord,
+                        {1: slice(i, i + 1), 2: slice(s, s + 1)})
+            del c
+            outs.append((coord, logits))
+        home = mesh.devices[homes[0]]
+        for _, lg in outs[1:]:
+            traffic["logits"] += lg.numel() * lg.element_size()
+        logits = torch.cat([lg.to(home) for _, lg in outs]) \
+            if len(outs) > 1 else outs[0][1]
+        return logits, cache
+
+    if mode == "prefill":
+        def serve_step(params, batch, cache):
+            return run(params, batch, cache)
+    else:
+        def serve_step(params, cache, tokens, t):
+            return run(params, {"tokens": tokens, "t": t}, cache)
+    serve_step.traffic = traffic
+    return serve_step

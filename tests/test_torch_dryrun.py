@@ -17,8 +17,17 @@ against the reference's, on the CPU.
   matmul FLOPs (each layer's last product and the CE head's logits
   recomputed by ``torch.utils.checkpoint``, less the one-hot
   contraction the port gathers instead).
-* The launcher prints the reference's line for every train cell of both
-  production meshes and writes their JSON.
+* The closed-form serve counts against a live lowering of the
+  reference's prefill and decode serve steps (its dry run's
+  ``make_serve_step`` under the ``"serve"`` activation rules): the same
+  reduced config, batch 8, prompt 32, cache 64, on the same (2, 2)
+  ``Auto`` mesh, params under ``"serve"`` and ``"serve_replicated"``.
+  The argument bytes (params, cache, inputs) and the matmul FLOPs a
+  device equal the lowering's exactly in all four programs.
+* The launcher prints the reference's line for every valid cell of both
+  production meshes (train, prefill and decode) and writes their JSON;
+  each decode record has ``decode_step_ms``; ``--serve-mode auto``,
+  ``--set``, ``--accum`` and ``--tag`` act as the reference's do.
 """
 
 import dataclasses
@@ -34,7 +43,7 @@ import pytest
 from repro import configs as j_configs
 from repro.launch import hlo_analysis
 from repro_torch import configs as t_configs
-from repro_torch.launch import dryrun, train_cost
+from repro_torch.launch import dryrun, serve_cost, train_cost
 from repro_torch.training import train_loop as t_loop
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -138,21 +147,161 @@ def test_counts_match_reference_lowering():
     assert round(gap, 4) == 0.0901
 
 
+_LOWER_SERVE = textwrap.dedent("""\
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import dataclasses, json
+    import jax, jax.numpy as jnp, numpy as np
+    from repro import configs, sharding as shlib
+    from repro.launch import hlo_analysis, sharding as rules_lib
+    from repro.models import model_zoo
+    from repro.serving import engine
+
+    mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(2, 2),
+                             ("data", "model"))
+    cfg = dataclasses.replace(configs.get_smoke_config("qwen2.5-14b"),
+                              **REDUCED)
+    B, S, T = 8, 32, 64
+    arules = rules_lib.act_rules(mesh, "serve")
+    params = model_zoo.abstract_params(cfg)
+    cache = model_zoo.init_cache(cfg, B, T, abstract=True)
+    cache_sh = rules_lib.cache_shardings(cfg, cache, mesh, "serve")
+    batch = {"tokens": jax.ShapeDtypeStruct((B, S), jnp.int32)}
+    batch_sh = rules_lib.batch_shardings(batch, mesh)
+    tok = jax.ShapeDtypeStruct((B,), jnp.int32)
+    tok_sh = rules_lib.batch_shardings({"tokens": tok}, mesh)["tokens"]
+    pre = engine.make_serve_step(cfg, "prefill")
+    dec = engine.make_serve_step(cfg, "decode")
+
+    def p_step(p, b, c):
+        with shlib.use_rules(arules):
+            return pre(p, b, c)
+
+    def d_step(p, c, tk, t):
+        with shlib.use_rules(arules):
+            return dec(p, c, tk, t)
+
+    out = {}
+    for mode in ("serve", "serve_replicated"):
+        params_sh = rules_lib.param_shardings(cfg, mesh, mode)
+        with mesh:
+            progs = {
+                "prefill": jax.jit(
+                    p_step, in_shardings=(params_sh, batch_sh, cache_sh),
+                    out_shardings=(None, cache_sh), donate_argnums=(2,)
+                ).lower(params, batch, cache).compile(),
+                "decode": jax.jit(
+                    d_step, in_shardings=(params_sh, cache_sh, tok_sh,
+                                          tok_sh),
+                    out_shardings=(None, cache_sh), donate_argnums=(1,)
+                ).lower(params, cache, tok, tok).compile()}
+        for kind, c in progs.items():
+            roof, _ = hlo_analysis.roofline_from_compiled(c, 4)
+            out[mode + "/" + kind] = {
+                "args": c.memory_analysis().argument_size_in_bytes,
+                "mxu": roof.mxu_flops_per_device}
+    print(json.dumps(out))
+""")
+
+
+def test_serve_counts_match_reference_lowering():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env.pop("XLA_FLAGS", None)
+    res = subprocess.run(
+        [sys.executable, "-c", _LOWER_SERVE.replace("**REDUCED",
+                                                    f"**{REDUCED!r}")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    ref = json.loads(res.stdout.strip().splitlines()[-1])
+
+    cfg = dataclasses.replace(t_configs.get_smoke_config("qwen2.5-14b"),
+                              **REDUCED)
+    mesh = {"data": 2, "model": 2}
+    shapes = {"prefill": (t_configs.ShapeSpec("p", "prefill", 32, 8),
+                          dict(cache_len=64)),
+              "decode": (t_configs.ShapeSpec("d", "decode", 64, 8), {})}
+    for mode in ("serve", "serve_replicated"):
+        for kind, (shape, kw) in shapes.items():
+            c = serve_cost.serve_step_counts(cfg, mesh, shape,
+                                             serve_mode=mode, **kw)
+            want = ref[f"{mode}/{kind}"]
+            assert c["argument_bytes"] == want["args"], (mode, kind)
+            assert c["mxu_flops_per_device"] == want["mxu"], (mode, kind)
+            # nothing recomputed in a serve step: the port runs the
+            # products the reference schedules
+            assert c["port_mxu_flops_per_device"] == want["mxu"]
+    # float32 reduced weights: the "serve" layout splits every weight
+    # four ways, "serve_replicated" only over "model"; the cache (k, v
+    # (2, 8, 64, 2, 16) float32 and pos) splits rows over "data" and
+    # positions over "model"
+    assert ref["serve/prefill"]["args"] == 107_648 + 66_560 + 512
+    assert ref["serve_replicated/prefill"]["args"] == (214_784 + 66_560
+                                                        + 512)
+    assert ref["serve/decode"]["mxu"] == 425_984
+
+
 def test_dryrun_prints_every_train_cell(tmp_path, capsys):
     out = dryrun.main(["--all", "--out-dir", str(tmp_path)])
-    train = [a for a, s in t_configs.valid_cells() if s == "train_4k"]
-    assert [(r["mesh"], r["arch"]) for r in out] == (
-        [("single", a) for a in train] + [("multi", a) for a in train])
+    cells = t_configs.valid_cells()
+    assert [(r["mesh"], r["arch"], r["shape"]) for r in out] == (
+        [("single", a, s) for a, s in cells]
+        + [("multi", a, s) for a, s in cells])
+    train = [a for a, s in cells if s == "train_4k"]
+    assert sum(r["kind"] == "train" for r in out) == 2 * len(train)
     lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 2 * len(train)
+    assert len(lines) == 2 * len(cells)
     assert all(": OK closed-form mem/dev=" in l and "dominant=" in l
                for l in lines)
     for r in out:
         saved = json.loads((tmp_path / r["mesh"] /
-                            f"{r['arch']}__train_4k.json").read_text())
+                            f"{r['arch']}__{r['shape']}.json").read_text())
         assert saved["counts"] == "closed-form"
         assert saved["chips"] == (256 if r["mesh"] == "single" else 512)
         assert saved["hardware"] == "NVIDIA H100 SXM5 80GB, 700 W"
+        assert saved["kind"] == t_configs.SHAPES[r["shape"]].kind
+        if saved["kind"] == "decode":
+            assert saved["decode_step_ms"] == pytest.approx(
+                saved["roofline"]["step_s"] * 1e3)
+            assert saved["decode_step_ms"] > 0
+        if saved["kind"] != "train":
+            assert saved["serve_mode"] == "serve"
+            assert saved["argument_bytes"] == (
+                saved["params_bytes"] + saved["cache_bytes"]
+                + saved["input_bytes"])
+
+
+def test_dryrun_serve_options(tmp_path, capsys):
+    """``--serve-mode auto`` takes the reference's rule (stablelm's 16th
+    of 3.3 GB replicates, llama3-405b's shards); ``--set`` coerces as the
+    reference does; ``--tag`` suffixes the file; ``--accum`` reaches a
+    train cell."""
+    for arch, want in (("stablelm-1.6b", "serve_replicated"),
+                       ("llama3-405b", "serve")):
+        r, = dryrun.main(["--arch", arch, "--shape", "decode_32k", "--mesh",
+                          "single", "--serve-mode", "auto", "--out-dir",
+                          str(tmp_path)])
+        assert r["serve_mode"] == want
+    r, = dryrun.main(["--arch", "stablelm-1.6b", "--shape", "prefill_32k",
+                      "--mesh", "single", "--set", "num_layers=2",
+                      "--set", "remat=False", "--tag", "two",
+                      "--out-dir", str(tmp_path)])
+    full, = dryrun.main(["--arch", "stablelm-1.6b", "--shape", "prefill_32k",
+                         "--mesh", "single", "--out-dir", str(tmp_path)])
+    assert (tmp_path / "single" / "stablelm-1.6b__prefill_32k__two.json"
+            ).exists()
+    assert r["cache_bytes"] * 12 == full["cache_bytes"]     # 2 of 24 layers
+    cfg = dryrun.apply_sets(t_configs.get_config("stablelm-1.6b"),
+                            ["num_layers=2", "rope_theta=5e4",
+                             "remat=False", "name=x"])
+    assert (cfg.num_layers, cfg.rope_theta, cfg.remat, cfg.name) == (
+        2, 50000.0, False, "x")
+    r, = dryrun.main(["--arch", "stablelm-1.6b", "--shape", "train_4k",
+                      "--mesh", "single", "--accum", "4", "--out-dir",
+                      str(tmp_path)])
+    assert r["accum_steps"] == 4
+    long_cells = [s for a, s in t_configs.valid_cells()
+                  if a == "rwkv6-7b"]
+    assert "long_500k" in long_cells
     with pytest.raises(SystemExit):
-        dryrun.main(["--arch", "qwen2.5-14b", "--shape", "decode_32k",
+        dryrun.main(["--arch", "qwen2.5-14b", "--shape", "long_500k",
                      "--out-dir", str(tmp_path)])

@@ -170,6 +170,35 @@ def test_sharded_training_defaults_to_the_card(no_card, tmp_path):
     assert out[0]["chips"] == 256
 
 
+def test_serve_step_defaults_to_the_card(no_card, tmp_path):
+    """``make_serve_step`` runs on the card unless told otherwise: without
+    one it raises; ``device="cpu"`` and a CPU mesh work; the serve cells
+    of the dry run need no device."""
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import engine
+    cfg, params = _smoke()
+    for mode in ("prefill", "decode"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            engine.make_serve_step(cfg, mode)
+    step = engine.make_serve_step(cfg, "prefill", "cpu")
+    cache = model_zoo.init_cache(cfg, 2, 16, "cpu")
+    batch = {"tokens": torch.zeros((2, 4), dtype=torch.int32)}
+    logits, _ = step(params, batch, cache)
+    with mesh.forced_devices(4):
+        cpu = mesh.make_mesh((2, 2), ("data", "model"),
+                             mesh.host_devices("cpu"))
+    placed = engine.serve_placement(cfg, cpu, params,
+                                    model_zoo.init_cache(cfg, 2, 16, "cpu"),
+                                    batch)
+    p, c, x = placed
+    got, _ = engine.make_serve_step(cfg, "prefill", mesh=cpu)(p, x, c)
+    assert torch.equal(got.argmax(-1), logits.argmax(-1))
+    out = dryrun.main(["--mesh", "single", "--arch", "stablelm-1.6b",
+                       "--shape", "decode_32k", "--out-dir", str(tmp_path)])
+    assert out[0]["decode_step_ms"] > 0
+
+
 def test_endpoint_refuses_params_on_another_device():
     from repro_torch.serving.engine import Endpoint
     cfg, params = _smoke()
